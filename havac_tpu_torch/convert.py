@@ -1,0 +1,85 @@
+"""Carry state from the JAX engine into the PyTorch engine.
+
+The system has no weights; its parameters are the projected score rows and
+the database tables, and its chain state is the DP row state and the carry
+column. These helpers turn the JAX engine's numpy state into the port's
+tensors. They import nothing of JAX: the SWAR unpacking is reimplemented
+here (`havac_tpu/ops/ssv_swar.py` `unpack_state` imports jax).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+SWAR_FIELD_BITS = 10  # three 10-bit cells per int32 word
+SWAR_FIELD_MASK = (1 << SWAR_FIELD_BITS) - 1
+
+
+@dataclass
+class EngineTensors:
+    """A loaded engine's state as the port's tensors. ``scores`` are the
+    raw (unbiased) int8 projected scores — never the SWAR kernel's +256
+    biased, -128-padded strips."""
+
+    scores: torch.Tensor  # int8 (P, card)
+    phmm_prefix: torch.Tensor  # int64 (models + 1,)
+    reset_rows: Optional[torch.Tensor]  # int32 (P,) or None
+    codes: torch.Tensor  # uint8 (padded length,)
+    starts: torch.Tensor  # int64 (sequences + 1,)
+    lengths: torch.Tensor  # int64 (sequences,)
+    alphabet: str
+    strand: str
+
+
+def from_reference_engine(engine, device) -> EngineTensors:
+    """The loaded state of a ``havac_tpu.engine.Havac`` on ``device``."""
+    if engine.scores is None or engine.database is None:
+        raise ValueError("the engine has no models or database loaded")
+    dev = torch.device(device)
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+
+    db = engine.database
+    return EngineTensors(
+        scores=t(engine.scores, np.int8),
+        phmm_prefix=t(engine.phmm_prefix, np.int64),
+        reset_rows=(None if engine.reset_rows is None
+                    else t(engine.reset_rows, np.int32)),
+        codes=t(db.codes, np.uint8),
+        starts=t(db.starts, np.int64),
+        lengths=t(db.lengths, np.int64),
+        alphabet=engine.alphabet,
+        strand=engine.strand,
+    )
+
+
+def state_from_swar(packed: np.ndarray, device) -> torch.Tensor:
+    """The SWAR kernel's packed (B, WS, 128) row state as the (B*W,) int32
+    state the port chains (W = 3*WS*128). Field f of word w in block b
+    holds position b*W + f*WS*128 + w."""
+    packed = np.asarray(packed)
+    B = packed.shape[0]
+    words = packed.astype(np.int64).reshape(B, -1)
+    fields = np.stack([(words >> (SWAR_FIELD_BITS * f)) & SWAR_FIELD_MASK
+                       for f in range(3)], axis=1)
+    return torch.from_numpy(
+        fields.reshape(-1).astype(np.int32)).to(torch.device(device))
+
+
+def checkpoint_from_reference(path: str
+                              ) -> Tuple[int, np.ndarray, np.ndarray,
+                                         np.ndarray, int]:
+    """Read the JAX pipelined engine's checkpoint npz: (next_ci, carries
+    (n_row, rchunk+1) int32, hit_rows int64, hit_positions int64,
+    fingerprint). The port writes and resumes the same form, so its engine
+    continues such a run when its chunk geometry agrees."""
+    with np.load(path) as ck:
+        return (int(ck["next_ci"]), ck["carries"].astype(np.int32),
+                ck["hit_rows"].astype(np.int64),
+                ck["hit_positions"].astype(np.int64),
+                int(ck["fingerprint"]))

@@ -1,0 +1,483 @@
+"""Public driver API — the PyTorch counterpart of `havac_tpu.engine.Havac`.
+
+Same surface and errors as the JAX engine's single-device path: construct
+with a p-value and an explicit ``device``, load a pHMM collection and a
+sequence database, run the SSV sweep (synchronously, or asynchronously with
+state polling and abort), then read resolved hits as (sequence_index,
+position_in_sequence, phmm_index, position_in_phmm) columns.
+
+The backend follows the device: on a CUDA device (``backend == "cuda"``)
+the sweep runs the hand-written Hopper kernel
+(`havac_tpu_torch/csrc/ssv_sweep.cu`); on the CPU (``"torch"``) it runs the
+plain PyTorch version. Neither falls back to the other, and
+``device="cuda"`` without CUDA raises. Multi-device (``mesh=``) sweeps are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import enum
+import logging
+import os
+import threading
+import zlib
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from havac_tpu import native
+from havac_tpu.hits.decode import ResolvedHits
+from havac_tpu.hits.verify import HitVerificationError, verify_hits
+from havac_tpu.io.fasta import (SequenceDatabase,
+                                augment_with_reverse_complement,
+                                load_fasta_database)
+from havac_tpu.io.hmm import (ProfileHmm, model_length_prefix_sums, read_hmm,
+                              read_hmm_text)
+from havac_tpu.ops.common import round_up
+from havac_tpu.scoring.reprojection import project_models
+from havac_tpu_torch.engine.pipeline import PipelinedSweep, pairs_from_keys
+
+DEFAULT_P_VALUE = 0.02  # the reference CLI's default
+
+log = logging.getLogger("havac_tpu_torch.engine")
+
+
+class HavacRunState(enum.Enum):
+    """Run lifecycle (the JAX engine's states)."""
+
+    IDLE = "idle"
+    RUNNING = "running"
+    COMPLETED = "completed"
+    ABORTED = "aborted"
+    ERROR = "error"
+
+
+class HavacUsageError(RuntimeError):
+    """API misuse (run before load, hits before completion, ...)."""
+
+
+@dataclass
+class RunStats:
+    """Phase timing and throughput of one run."""
+
+    num_chunks: int = 0
+    cells: int = 0
+    sweep_seconds: float = 0.0
+    num_raw_hits: int = 0
+    # Chunks whose hit count overflowed the key buffer and ran once more.
+    overflow_retries: int = 0
+    pipeline_prof: Optional[Dict[str, float]] = None
+    num_unverified: int = 0  # populated when verify_hits=True
+    # Whether the native host core resolved this run's hits (False: the
+    # numpy host path did). None until a run completes.
+    native_active: Optional[bool] = None
+    chunk_geometry: Optional[Dict[str, int]] = None
+
+    @property
+    def gcups(self) -> float:
+        return self.cells / self.sweep_seconds / 1e9 if self.sweep_seconds else 0.0
+
+
+class Havac:
+    """SSV search engine on one device.
+
+    Usage::
+
+        engine = Havac(p_value=0.02, device="cuda")
+        engine.load_phmm("models.hmm")
+        engine.load_sequence("db.fasta")
+        engine.run()                      # or run_async(); wait()
+        hits = engine.hits()              # ResolvedHits columns
+
+    ``chunk_symbols`` x ``chunk_rows`` is one kernel launch; any sizes are
+    valid, and hits do not depend on them. ``pad_multiple`` pads the encoded
+    database (with hashed symbols, as the JAX engine pads to its kernel
+    block width); padding hits appear in :meth:`raw_hits` only.
+    """
+
+    def __init__(
+        self,
+        p_value: float = DEFAULT_P_VALUE,
+        *,
+        device: Union[str, torch.device],
+        chunk_symbols: int = 1 << 24,
+        chunk_rows: int = 8160,
+        pad_multiple: int = 1,
+        strand: str = "forward",
+        isolate_models: bool = False,
+        seed: int = 0x5A5A,
+        checkpoint_path: Optional[str] = None,
+        verify_hits: bool = False,
+        mesh=None,
+    ) -> None:
+        if mesh is not None:
+            raise HavacUsageError(
+                "mesh= (multi-device sweeps) is not yet ported")
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise HavacUsageError("CUDA is not available on this machine")
+            self.backend = "cuda"
+        elif self.device.type == "cpu":
+            self.backend = "torch"
+        else:
+            raise HavacUsageError(
+                f"unsupported device {self.device}: cuda or cpu")
+        self.p_value = float(p_value)
+        self.chunk_symbols = max(1, int(chunk_symbols))
+        self.chunk_rows = max(1, int(chunk_rows))
+        self.pad_multiple = max(1, int(pad_multiple))
+        if strand not in ("forward", "both"):
+            raise HavacUsageError("strand must be 'forward' or 'both'")
+        self.strand = strand
+        self.isolate_models = isolate_models
+        self.reset_rows: Optional[np.ndarray] = None
+        self.seed = seed
+        self.checkpoint_path = checkpoint_path
+        self.resumed_chunks = 0
+        self.verify_hits = verify_hits
+        self.verification = None
+        self.alphabet = "dna"
+
+        self.models: Optional[List[ProfileHmm]] = None
+        self.scores: Optional[np.ndarray] = None
+        self.phmm_prefix: Optional[np.ndarray] = None
+        self.database: Optional[SequenceDatabase] = None
+
+        self._state = HavacRunState.IDLE
+        self._state_lock = threading.Lock()
+        self._abort_event = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self._raw_keys: List[np.ndarray] = []
+        self._raw: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        self._resolved: Optional[ResolvedHits] = None
+        self._chunks_done = 0
+        self._chunks_total = 0
+        self.stats = RunStats()
+        self._warm_sweep: Optional[PipelinedSweep] = None
+
+    # ------------------------------------------------------------------ load
+
+    def load_phmm(self, src: Union[str, ProfileHmm, Sequence[ProfileHmm]],
+                  is_text: bool = False) -> "Havac":
+        """Load and reproject a pHMM collection: a path, .hmm text
+        (``is_text=True``), a ProfileHmm, or a sequence of them."""
+        if isinstance(src, str):
+            models = read_hmm_text(src) if is_text else read_hmm(src)
+        elif isinstance(src, ProfileHmm):
+            models = [src]
+        else:
+            models = list(src)
+        if not models:
+            raise HavacUsageError("no models to load")
+        cards = {m.alphabet_cardinality for m in models}
+        if len(cards) > 1:
+            raise HavacUsageError(
+                f"mixed alphabets in one collection: cardinalities {sorted(cards)}")
+        card = cards.pop()
+        if card == 20:
+            if self.strand == "both":
+                raise HavacUsageError(
+                    "strand='both' (reverse complement) is meaningless for "
+                    "amino sequences")
+            self.alphabet = "amino"
+        elif card != 4:
+            raise HavacUsageError(
+                f"model {models[0].name!r} has alphabet cardinality {card}; "
+                "supported: 4 (dna/rna) and 20 (amino)")
+        else:
+            self.alphabet = "dna"
+        self.models = models
+        self.scores = project_models(models, self.p_value)
+        self.phmm_prefix = model_length_prefix_sums(models)
+        self._warm_sweep = None
+        self.reset_rows = None
+        if self.isolate_models:
+            self.reset_rows = np.zeros(self.scores.shape[0], dtype=bool)
+            self.reset_rows[self.phmm_prefix[:-1]] = True
+        log.info("loaded %d models, %d total positions (p=%g)",
+                 len(models), self.scores.shape[0], self.p_value)
+        return self
+
+    def load_sequence(self, src: Union[str, SequenceDatabase],
+                      is_text: bool = False) -> "Havac":
+        """Load and encode a FASTA database (path, or text with
+        ``is_text=True``), or take an encoded SequenceDatabase."""
+        if isinstance(src, SequenceDatabase):
+            self.database = src
+        else:
+            self.database = load_fasta_database(
+                src, pad_multiple=self.pad_multiple, seed=self.seed,
+                is_text=is_text, alphabet=self.alphabet)
+        if getattr(self.database, "alphabet", "dna") != self.alphabet:
+            raise HavacUsageError(
+                f"database alphabet {self.database.alphabet!r} does not "
+                f"match the loaded models ({self.alphabet!r}); call "
+                "load_phmm before load_sequence so the encoder matches")
+        if self.strand == "both":
+            self._n_forward = self.database.num_sequences
+            self.database = augment_with_reverse_complement(
+                self.database, pad_multiple=self.pad_multiple)
+        log.info("loaded %d sequences, %d positions (padded %d)",
+                 self.database.num_sequences,
+                 int(self.database.lengths.sum()),
+                 self.database.padded_length)
+        self._warm_sweep = None
+        return self
+
+    def warmup(self) -> "Havac":
+        """Build (or load) the sweep kernel and stage the database and the
+        scores on the device now, so the next :meth:`run` starts sweeping
+        at once. Call after :meth:`load_phmm` and :meth:`load_sequence`."""
+        if self.scores is None or self.database is None:
+            raise HavacUsageError(
+                "load_phmm + load_sequence before warmup()")
+        self._warm_sweep = self._build_sweep()
+        return self
+
+    def _codes(self) -> np.ndarray:
+        """The swept symbols: the database codes zero-padded to a multiple
+        of ``pad_multiple`` (as the JAX engine pads to its block width)."""
+        codes = self.database.codes
+        if codes.shape[0] % self.pad_multiple:
+            codes = np.pad(codes, (0, round_up(codes.shape[0],
+                                               self.pad_multiple)
+                                   - codes.shape[0]))
+        return codes
+
+    def _build_sweep(self) -> PipelinedSweep:
+        return PipelinedSweep(
+            self._codes(), self.scores, self.chunk_symbols, self.chunk_rows,
+            self.device, self.database, self.phmm_prefix,
+            reset_rows=self.reset_rows)
+
+    # ------------------------------------------------------------------- run
+
+    @property
+    def state(self) -> HavacRunState:
+        with self._state_lock:
+            return self._state
+
+    @property
+    def progress(self) -> float:
+        total = self._chunks_total
+        return self._chunks_done / total if total else 0.0
+
+    def run(self) -> "Havac":
+        """Synchronous sweep."""
+        self.run_async()
+        self.wait()
+        if self._error is not None:
+            raise self._error
+        return self
+
+    def run_async(self) -> "Havac":
+        """Start the sweep on a worker thread and return immediately."""
+        if self.scores is None or self.database is None:
+            raise HavacUsageError("load_phmm and load_sequence must be called before run")
+        with self._state_lock:
+            if self._state == HavacRunState.RUNNING:
+                raise HavacUsageError("a run is already in flight")
+            self._state = HavacRunState.RUNNING
+        self._abort_event.clear()
+        self._error = None
+        self._raw_keys = []
+        self._raw = None
+        self._resolved = None
+        self._chunks_done = 0
+        self.stats = RunStats()
+        self._thread = threading.Thread(target=self._run_loop, daemon=True)
+        self._thread.start()
+        return self
+
+    def wait(self, timeout: Optional[float] = None) -> HavacRunState:
+        """Block until the sweep finishes (or ``timeout`` seconds pass)."""
+        if self._thread is not None:
+            self._thread.join(timeout)
+        return self.state
+
+    def abort(self) -> None:
+        """Request cancellation; takes effect at the next chunk boundary."""
+        self._abort_event.set()
+
+    # ------------------------------------------------------------------ hits
+
+    def _sorted_raw(self) -> Tuple[np.ndarray, np.ndarray]:
+        with self._state_lock:
+            if self._raw is None:
+                parts = [k for k in self._raw_keys if k.size]
+                keys = (np.sort(np.concatenate(parts)) if parts
+                        else np.empty(0, dtype=np.uint64))
+                self._raw = pairs_from_keys(keys)
+                self._raw_keys = []
+            return self._raw
+
+    def raw_hits(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Unresolved global (phmm_row, sequence_position) hit coordinates,
+        sorted by (row, position), padding and separator hits included."""
+        self._require_completed()
+        return self._sorted_raw()
+
+    def hits(self) -> ResolvedHits:
+        """Resolved hits ordered by (row, position): padding/separator hits
+        dropped, model coordinates recovered via prefix sums. With
+        strand="both", minus-strand hits are reported in forward
+        coordinates with strand '-'."""
+        self._require_completed()
+        resolved = self._resolved
+        if self.strand == "both":
+            n = self._n_forward
+            minus = resolved.sequence_index >= n
+            idx = np.where(minus, resolved.sequence_index - n,
+                           resolved.sequence_index)
+            lens = self.database.lengths[resolved.sequence_index]
+            pos = np.where(minus, lens - 1 - resolved.sequence_position,
+                           resolved.sequence_position)
+            resolved = ResolvedHits(
+                sequence_index=idx,
+                sequence_position=pos,
+                phmm_index=resolved.phmm_index,
+                phmm_position=resolved.phmm_position,
+                strand=np.where(minus, "-", "+").astype("U1"),
+            )
+        return resolved
+
+    def verify(self, initial_bound: int = 64, sample: Optional[int] = None):
+        """Re-derive raw hits by bounded re-SSV (exact); returns a
+        ``VerificationReport``. ``sample`` verifies that many hits drawn
+        without replacement (a numpy Generator seeded from ``seed``)
+        instead of all of them."""
+        self._require_completed()
+        rows, positions = self._sorted_raw()
+        if sample is not None and sample < rows.shape[0]:
+            rng = np.random.default_rng(self.seed)
+            pick = np.sort(rng.choice(rows.shape[0], size=sample,
+                                      replace=False))
+            rows, positions = rows[pick], positions[pick]
+        return self._verify_raw(rows, positions, initial_bound)
+
+    def _verify_raw(self, rows, positions, initial_bound: int = 64):
+        codes = self._codes()
+        if positions.size and int(positions.max()) >= codes.shape[0]:
+            codes = np.pad(codes,
+                           (0, int(positions.max()) + 1 - codes.shape[0]))
+        return verify_hits(rows, positions, codes, self.scores,
+                           reset_rows=self.reset_rows,
+                           initial_bound=initial_bound)
+
+    def _maybe_verify(self) -> None:
+        self.stats.native_active = native.available()
+        if not self.verify_hits:
+            return
+        rows, positions = self._sorted_raw()
+        report = self._verify_raw(rows, positions)
+        self.verification = report
+        self.stats.num_unverified = report.num_hits - report.num_verified
+        if not report.all_verified:
+            raise HitVerificationError(report, rows, positions)
+
+    def _require_completed(self) -> None:
+        state = self.state
+        if state == HavacRunState.ERROR and self._error is not None:
+            raise self._error
+        if state != HavacRunState.COMPLETED:
+            raise HavacUsageError(
+                f"hits requested in state {state.value}; run must complete first")
+
+    # ------------------------------------------------------------- internals
+
+    def _run_loop(self) -> None:
+        try:
+            sweep = self._warm_sweep
+            self._warm_sweep = None
+            if sweep is None:
+                sweep = self._build_sweep()
+            self._chunks_total = sweep.n_col * sweep.n_row
+
+            def progress(done):
+                self._chunks_done = done
+
+            checkpoint_cb = resume = None
+            if self.checkpoint_path:
+                fingerprint = self._fingerprint(sweep.L, sweep.P, sweep.chunk,
+                                                sweep.rchunk)
+                resume = self._load_checkpoint(fingerprint, sweep.n_row,
+                                               sweep.rchunk)
+                if resume is not None:
+                    self.resumed_chunks = resume[0] * sweep.n_row
+
+                def checkpoint_cb(next_ci, carries, rows_s, pos_s):
+                    tmp = self.checkpoint_path + ".tmp"
+                    np.savez(tmp, fingerprint=np.int64(fingerprint),
+                             next_ci=np.int64(next_ci), carries=carries,
+                             hit_rows=rows_s, hit_positions=pos_s)
+                    os.replace(tmp + ".npz"
+                               if os.path.exists(tmp + ".npz") else tmp,
+                               self.checkpoint_path)
+
+            log.info("pipelined sweep: %d column x %d row chunks, backend=%s",
+                     sweep.n_col, sweep.n_row, self.backend)
+            result = sweep.run(self._abort_event, progress,
+                               checkpoint_cb=checkpoint_cb, resume=resume)
+            if result is None:
+                with self._state_lock:
+                    self._state = HavacRunState.ABORTED
+                return
+            self._resolved, self._raw_keys, t_sweep = result
+            self.stats.overflow_retries = sweep.regrows
+            self.stats.pipeline_prof = dict(sweep.prof)
+            self.stats.num_chunks = self._chunks_total
+            self.stats.cells = sweep.L * sweep.P
+            self.stats.sweep_seconds = t_sweep
+            self.stats.num_raw_hits = sum(int(k.size) for k in self._raw_keys)
+            self.stats.chunk_geometry = {
+                "n_col": sweep.n_col, "n_row": sweep.n_row,
+                "chunk_symbols": sweep.chunk, "chunk_rows": sweep.rchunk,
+                "key_cap": sweep.key_cap, "lookahead": sweep.lookahead,
+            }
+            if self.checkpoint_path and os.path.exists(self.checkpoint_path):
+                os.remove(self.checkpoint_path)
+            self._maybe_verify()
+            with self._state_lock:
+                self._state = HavacRunState.COMPLETED
+        except BaseException as exc:  # surfaced on run()/hits()
+            self._error = exc
+            with self._state_lock:
+                self._state = HavacRunState.ERROR
+
+    def _fingerprint(self, L: int, P: int, chunk: int, rchunk: int) -> int:
+        """The JAX engine's checkpoint fingerprint, term for term, so a
+        checkpoint resumes in either engine when the chunk geometry agrees."""
+        h = zlib.crc32(self.scores.tobytes())
+        db_crc = getattr(self.database, "_codes_crc32", None)
+        if db_crc is None:
+            db_crc = zlib.crc32(np.ascontiguousarray(self.database.codes))
+            self.database._codes_crc32 = db_crc
+        h = zlib.crc32(db_crc.to_bytes(4, "little"), h)
+        h = zlib.crc32(
+            np.asarray([L, P, chunk, rchunk, self.database.padded_length],
+                       dtype=np.int64).tobytes(), h)
+        h = zlib.crc32(
+            f"{self.strand}:{self.isolate_models}:{self.p_value}".encode(), h)
+        return h
+
+    def _load_checkpoint(self, fingerprint: int, n_row: int, rchunk: int):
+        try:
+            with np.load(self.checkpoint_path) as ck:
+                if (int(ck["fingerprint"]) == fingerprint
+                        and "carries" in ck
+                        and ck["carries"].shape == (n_row, rchunk + 1)):
+                    self._chunks_done = int(ck["next_ci"]) * n_row
+                    return (int(ck["next_ci"]), ck["carries"].astype(np.int32),
+                            ck["hit_rows"], ck["hit_positions"])
+        except FileNotFoundError:
+            return None
+        except (KeyError, OSError, ValueError):
+            pass
+        log.warning("checkpoint %s does not match this run's inputs or "
+                    "geometry; starting from scratch — it will be "
+                    "overwritten", self.checkpoint_path)
+        return None

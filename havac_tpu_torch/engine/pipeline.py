@@ -1,0 +1,351 @@
+"""Pipelined single-device sweep: hit resolution overlaps the device sweep.
+
+The counterpart of `havac_tpu/engine/pipeline.py` `PipelinedSweep`. The
+sequence database and the score rows are staged on the device once; the
+(column chunk x row chunk) grid is swept in column-major order, each chunk
+one launch of the sweep kernel (`ops/ssv_cuda.py`), with the row state
+chained down a column and the boundary-carry column chained across columns,
+both kept on the device. Up to ``lookahead`` chunks are in flight on one
+CUDA stream; each chunk's hit count and key buffer cross to pinned host
+memory by asynchronous copies, and a collector pool sorts and resolves the
+keys (`havac_tpu.native.resolve_keys_native`) while the device sweeps later
+chunks.
+
+The kernel emits its own hit keys and an exact count, so the JAX engine's
+dirty-tile drain, record compaction, pull batching and learned record caps
+have no counterpart here: a chunk whose count exceeds the key buffer is
+launched once more with a buffer of exactly that size, and the buffer size
+for later chunks grows to fit.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from havac_tpu import native
+from havac_tpu.hits.decode import ResolvedHits, resolve_block_with_keys
+from havac_tpu.ops.common import round_up
+from havac_tpu_torch.ops import ssv_cuda
+from havac_tpu_torch.ops.ssv_torch import KEY_POS_BITS, MAX_POS, MAX_ROW
+
+_POS_MASK = np.uint64((1 << KEY_POS_BITS) - 1)
+# Chunks in flight: while the host pulls and resolves chunk i, chunks i+1
+# and i+2 are queued on the device.
+LOOKAHEAD = 3
+# First per-chunk key buffer (8 MiB); a chunk with more hits runs once more
+# with an exact buffer and later chunks get room for 1.25x that count.
+FIRST_KEY_CAP = 1 << 20
+_RESOLVED_FIELDS = ("sequence_index", "sequence_position", "phmm_index",
+                    "phmm_position")
+
+
+def keys_from_pairs(rows: np.ndarray, pos: np.ndarray) -> np.ndarray:
+    return ((np.asarray(rows).astype(np.uint64) << np.uint64(KEY_POS_BITS))
+            | np.asarray(pos).astype(np.uint64))
+
+
+def pairs_from_keys(keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    return ((keys >> np.uint64(KEY_POS_BITS)).astype(np.int64),
+            (keys & _POS_MASK).astype(np.int64))
+
+
+@dataclass
+class _Pending:
+    """One launched chunk whose hits have not reached the host yet."""
+
+    ri: int
+    inputs: tuple  # (lo, symbols, init_state, init_carry): for a regrow
+    out: ssv_cuda.SweepBuffers
+    host_keys: Optional[torch.Tensor]  # pinned, CUDA only
+    host_count: Optional[torch.Tensor]
+    event: Optional["torch.cuda.Event"]
+
+
+@dataclass
+class ChunkHits:
+    """A chunk's hits on the host: every key (sorted) and the resolved
+    table of the kept ones (separator/padding hits dropped)."""
+
+    keys: np.ndarray  # uint64, sorted
+    resolved: ResolvedHits
+    kept_keys: np.ndarray  # uint64, sorted
+
+
+class PipelinedSweep:
+    """Chunked (column x row) sweep over ``codes`` (L,) uint8 against
+    ``scores`` (P, card) int8 on ``device``."""
+
+    def __init__(self, codes: np.ndarray, scores: np.ndarray,
+                 chunk_symbols: int, chunk_rows: int, device,
+                 database, phmm_prefix: np.ndarray,
+                 reset_rows: Optional[np.ndarray] = None,
+                 key_cap: int = FIRST_KEY_CAP) -> None:
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            ssv_cuda.build()
+        self.L = int(codes.shape[0])
+        self.P, card = scores.shape
+        if self.L == 0 or self.P == 0:
+            raise ValueError("empty database or model collection")
+        if int(codes.max()) >= card:
+            raise ValueError(
+                f"symbol code {int(codes.max())} >= alphabet cardinality {card}")
+        lengths = np.asarray(database.lengths, dtype=np.int64)
+        if (self.P >= MAX_ROW or self.L >= MAX_POS
+                or (lengths.size and int(lengths.max()) >= (1 << 31))):
+            raise ValueError("sweep exceeds the hit-key layout: rows < 2^25, "
+                             "positions < 2^38, sequences < 2^31")
+        self.chunk = max(1, min(int(chunk_symbols), (1 << 31) - 1))
+        self.n_col = -(-self.L // self.chunk)
+        self.n_row = -(-self.P // max(1, int(chunk_rows)))
+        self.rchunk = -(-self.P // self.n_row)
+        self.key_cap = max(1, int(key_cap))
+        self.lookahead = LOOKAHEAD
+        self.regrows = 0
+        self._database = database
+        self._prefix = np.asarray(phmm_prefix, dtype=np.int64)
+        self._tables = (np.asarray(database.starts, dtype=np.int64), lengths,
+                        self._prefix)
+        self._native = native if native.available() else None
+        self.prof: Dict[str, float] = {
+            "dispatch": 0.0, "gate_wait": 0.0, "ready_wait": 0.0,
+            "fetch": 0.0, "regrow": 0.0, "sort": 0.0, "resolve": 0.0,
+            "drain": 0.0, "tail": 0.0}
+        self._prof_lock = threading.Lock()
+        self._pinned: List[Tuple[torch.Tensor, torch.Tensor]] = []
+
+        # Stage the database and the per-row-chunk score rows once.
+        self._codes_dev = torch.from_numpy(
+            np.ascontiguousarray(codes, dtype=np.uint8)).to(self.device)
+        self._scores_dev: List[torch.Tensor] = []
+        self._reset_dev: List[Optional[torch.Tensor]] = []
+        for ri in range(self.n_row):
+            r0, r1 = self.row_range(ri)
+            self._scores_dev.append(torch.from_numpy(np.ascontiguousarray(
+                scores[r0:r1], dtype=np.int8)).to(self.device))
+            self._reset_dev.append(None if reset_rows is None else
+                                   torch.from_numpy(np.ascontiguousarray(
+                                       reset_rows[r0:r1], dtype=np.int32)
+                                   ).to(self.device))
+
+    # ------------------------------------------------------------ geometry
+
+    def row_range(self, ri: int) -> Tuple[int, int]:
+        r0 = ri * self.rchunk
+        return r0, min(self.P, r0 + self.rchunk)
+
+    def col_range(self, ci: int) -> Tuple[int, int]:
+        lo = ci * self.chunk
+        return lo, min(self.L, lo + self.chunk)
+
+    # ------------------------------------------------------------- chunks
+
+    def _host_buffers(self, cap: int):
+        while self._pinned:
+            keys, count = self._pinned.pop()
+            if keys.shape[0] == cap:
+                return keys, count
+        return (torch.empty(cap, dtype=torch.int64, pin_memory=True),
+                torch.empty(1, dtype=torch.int64, pin_memory=True))
+
+    def _enqueue(self, ci: int, ri: int, istate: torch.Tensor,
+                 icarry: torch.Tensor) -> _Pending:
+        lo, hi = self.col_range(ci)
+        r0, r1 = self.row_range(ri)
+        sym = self._codes_dev[lo:hi]
+        out = ssv_cuda.SweepBuffers.empty(hi - lo, r1 - r0, self.key_cap,
+                                          self.device)
+        ssv_cuda.launch(sym, self._scores_dev[ri], istate, icarry,
+                        self._reset_dev[ri], r0, lo, out)
+        host_keys = host_count = event = None
+        if self.device.type == "cuda":
+            host_keys, host_count = self._host_buffers(out.cap)
+            host_count.copy_(out.count, non_blocking=True)
+            host_keys.copy_(out.keys, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        return _Pending(ri, (lo, sym, istate, icarry), out, host_keys,
+                        host_count, event)
+
+    def _pull(self, p: _Pending) -> np.ndarray:
+        """The chunk's keys on the host (unordered); regrows on overflow."""
+        t0 = time.perf_counter()
+        if p.event is not None:
+            p.event.synchronize()
+        t1 = time.perf_counter()
+        count = p.host_count if p.host_count is not None else p.out.count
+        n = int(count[0])
+        if n <= p.out.cap:
+            src = p.host_keys if p.host_keys is not None else p.out.keys
+            keys = src[:n].numpy().view(np.uint64).copy()
+            if p.host_keys is not None:
+                self._pinned.append((p.host_keys, p.host_count))
+            self.prof["ready_wait"] += t1 - t0
+            self.prof["fetch"] += time.perf_counter() - t1
+            return keys
+        # The key buffer was too small: launch the chunk again with a buffer
+        # of exactly the count, and size later chunks' buffers to fit.
+        self.regrows += 1
+        self.key_cap = max(self.key_cap, round_up(n + n // 4, 1 << 16))
+        lo, sym, istate, icarry = p.inputs
+        r0, r1 = self.row_range(p.ri)
+        out = ssv_cuda.SweepBuffers.empty(sym.shape[0], r1 - r0, n,
+                                          self.device)
+        ssv_cuda.launch(sym, self._scores_dev[p.ri], istate, icarry,
+                        self._reset_dev[p.ri], r0, lo, out)
+        keys = out.keys.cpu().numpy().view(np.uint64).copy()
+        if int(out.count.cpu()[0]) != n:
+            raise RuntimeError("hit count changed on relaunch")
+        self.prof["ready_wait"] += t1 - t0
+        self.prof["regrow"] += time.perf_counter() - t1
+        return keys
+
+    def _resolve_chunk(self, keys: np.ndarray) -> ChunkHits:
+        """Collector-pool work item: sort the chunk's keys, then resolve
+        them to local coordinates (separator/padding hits dropped)."""
+        t0 = time.perf_counter()
+        keys.sort()
+        t1 = time.perf_counter()
+        if self._native is not None:
+            starts, lengths, prefix = self._tables
+            si, sp, mi, mp, kept = self._native.resolve_keys_native(
+                keys, starts, lengths, prefix, nthreads=1)
+            res = ResolvedHits(si, sp, mi, mp)
+        else:
+            rows, pos = pairs_from_keys(keys)
+            res, kr, kp = resolve_block_with_keys(rows, pos, self._database,
+                                                  self._prefix)
+            kept = keys_from_pairs(kr, kp)
+        t2 = time.perf_counter()
+        with self._prof_lock:
+            self.prof["sort"] += t1 - t0
+            self.prof["resolve"] += t2 - t1
+        return ChunkHits(keys, res, kept)
+
+    # ---------------------------------------------------------------- run
+
+    def run(self, abort_event=None,
+            progress: Optional[Callable[[int], None]] = None,
+            checkpoint_cb=None, resume=None
+            ) -> Optional[Tuple[ResolvedHits, List[np.ndarray], float]]:
+        """Full sweep; returns (resolved, raw key parts, sweep seconds), or
+        None when aborted. ``resolved`` is ordered by (row, position); each
+        raw part holds one chunk's hit keys, sorted.
+
+        ``checkpoint_cb(next_ci, carries (n_row, rchunk+1) int32, rows,
+        positions)`` runs after every column chunk but the last, with the
+        pipeline drained; ``resume`` is such a payload to continue from —
+        the JAX engine's pipelined checkpoint form."""
+        stream = (torch.cuda.Stream(device=self.device)
+                  if self.device.type == "cuda" else None)
+        ctx = (torch.cuda.stream(stream) if stream is not None
+               else contextlib.nullcontext())
+        t_start = time.perf_counter()
+        with ctx, ThreadPoolExecutor(max_workers=4) as pool:
+            out = self._run(pool, abort_event, progress, checkpoint_cb,
+                            resume, stream)
+        if out is None:
+            return None
+        return out[0], out[1], time.perf_counter() - t_start
+
+    def _run(self, pool, abort_event, progress, checkpoint_cb, resume,
+             stream):
+        dev = self.device
+        futures: List = []
+        results: List[ChunkHits] = []
+        pend: List[_Pending] = []
+        prev_carry: Dict[int, torch.Tensor] = {}
+        start_ci = 0
+        if resume is not None:
+            start_ci, carries, rows0, pos0 = resume
+            for ri in range(self.n_row):
+                r0, r1 = self.row_range(ri)
+                prev_carry[ri] = torch.from_numpy(np.ascontiguousarray(
+                    carries[ri][:r1 - r0 + 1], dtype=np.int32)).to(dev)
+            futures.append(pool.submit(self._resolve_chunk,
+                                       keys_from_pairs(rows0, pos0)))
+        done = start_ci * self.n_row
+
+        def drain_one():
+            p = pend.pop(0)
+            futures.append(pool.submit(self._resolve_chunk, self._pull(p)))
+
+        for ci in range(start_ci, self.n_col):
+            lo, hi = self.col_range(ci)
+            istate = torch.zeros(hi - lo, dtype=torch.int32, device=dev)
+            col_carry: Dict[int, torch.Tensor] = {}
+            for ri in range(self.n_row):
+                if abort_event is not None and abort_event.is_set():
+                    if stream is not None:
+                        stream.synchronize()
+                    for f in futures:
+                        f.result()
+                    return None
+                r0, r1 = self.row_range(ri)
+                icarry = prev_carry.get(ri)
+                if icarry is None:
+                    icarry = torch.zeros(r1 - r0 + 1, dtype=torch.int32,
+                                         device=dev)
+                t0 = time.perf_counter()
+                p = self._enqueue(ci, ri, istate, icarry)
+                pend.append(p)
+                t1 = time.perf_counter()
+                self.prof["dispatch"] += t1 - t0
+                while len(pend) >= self.lookahead:
+                    drain_one()
+                self.prof["gate_wait"] += time.perf_counter() - t1
+                istate = p.out.final_state  # chain row state down the column
+                col_carry[ri] = p.out.final_carry  # and the carry across
+                done += 1
+                if progress is not None:
+                    progress(done)
+            prev_carry = col_carry
+            if checkpoint_cb is not None and ci + 1 < self.n_col:
+                while pend:
+                    drain_one()
+                results += [f.result() for f in futures]
+                futures.clear()
+                carries = np.zeros((self.n_row, self.rchunk + 1), np.int32)
+                for ri, c in prev_carry.items():
+                    carries[ri, :c.shape[0]] = c.cpu().numpy()
+                allk = np.concatenate([r.keys for r in results]
+                                      or [np.empty(0, np.uint64)])
+                rows_s, pos_s = pairs_from_keys(allk)
+                checkpoint_cb(ci + 1, carries, rows_s, pos_s)
+        t_drain = time.perf_counter()
+        while pend:
+            drain_one()
+        results += [f.result() for f in futures]
+        self.prof["drain"] += time.perf_counter() - t_drain
+        t_tail = time.perf_counter()
+        resolved = _merge_resolved(results)
+        self.prof["tail"] += time.perf_counter() - t_tail
+        return resolved, [r.keys for r in results]
+
+
+def _merge_resolved(results: List[ChunkHits]) -> ResolvedHits:
+    """One table ordered by raw (row, position) key from per-chunk tables
+    that are each ordered already: a k-way merge of sorted runs."""
+    parts = [r for r in results if r.kept_keys.size]
+    if not parts:
+        return ResolvedHits(*(np.empty(0, dtype=np.int64),) * 4)
+    keys = np.concatenate([r.kept_keys for r in parts])
+    order = None
+    if len(parts) > 1:
+        offs = np.cumsum([0] + [r.kept_keys.size for r in parts])
+        order = native.merge_runs_u64_native(keys, offs, nthreads=8)
+        if order is None:
+            order = np.argsort(keys, kind="stable")
+    cols = []
+    for f in _RESOLVED_FIELDS:
+        col = np.concatenate([getattr(r.resolved, f) for r in parts])
+        cols.append(col if order is None else col[order])
+    return ResolvedHits(*cols)

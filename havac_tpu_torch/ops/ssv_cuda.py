@@ -1,0 +1,250 @@
+"""The hand-written Hopper SSV sweep kernel: build, binding and checked wrapper.
+
+`havac_tpu_torch/csrc/ssv_sweep.cu` is compiled with ``nvcc`` for sm_90a into
+a shared library with a plain C interface, at first use, under
+``build/havac_tpu_torch/`` beside the package (keyed by a hash of the
+sources, so an edited ``.cu`` rebuilds), and bound with ``ctypes``.
+
+:func:`launch` enqueues one sweep on the current CUDA stream without
+synchronising; :func:`ssv_sweep` is the synchronous form that reads the
+exact hit count and, when it exceeds the key buffer, regrows the buffer
+once to that count and launches again. Both dispatch on the tensors'
+device: CPU tensors go to the plain version
+(:func:`havac_tpu_torch.ops.ssv_torch.ssv_sweep_plain`), CUDA tensors to the
+kernel, anything else raises. ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from havac_tpu_torch.ops.ssv_torch import MAX_POS, MAX_ROW, ssv_sweep_plain
+
+LAUNCHES = 0  # kernel launches (CUDA tensors only) in this process
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "havac_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lib = None
+_lib_lock = threading.Lock()
+build_log = ""  # nvcc's output (ptxas register/shared-memory report)
+build_seconds = 0.0  # 0.0 when the library was already built
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def library_path() -> str:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"libhavac_ssv_{h.hexdigest()[:16]}.so")
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the CUDA sweep kernel is built "
+            "from havac_tpu_torch/csrc at first use")
+    return found
+
+
+def build() -> str:
+    """Compile the kernel library if it is missing; returns its path."""
+    global build_log, build_seconds
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    t0 = time.perf_counter()
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
+                         capture_output=True, text=True, timeout=600)
+    build_log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    os.replace(tmp, path)
+    build_seconds = time.perf_counter() - t0
+    return path
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            p, i64, u64 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong
+            lib.hv_ssv_sweep.restype = ctypes.c_int
+            lib.hv_ssv_sweep.argtypes = [p, i64, p, ctypes.c_int, ctypes.c_int,
+                                         p, p, p, i64, i64, p, p, p, u64, p, p]
+            lib.hv_error_string.restype = ctypes.c_char_p
+            lib.hv_error_string.argtypes = [ctypes.c_int]
+            _lib = lib
+        return _lib
+
+
+@dataclass
+class SweepBuffers:
+    """Outputs of one sweep: ``keys`` (cap,) int64 hit keys (unordered from
+    the kernel), ``count`` (1,) int64 exact hit count (may exceed cap),
+    ``final_state`` int32 (L,), ``final_carry`` int32 (P+1,)."""
+
+    keys: torch.Tensor
+    count: torch.Tensor
+    final_state: torch.Tensor
+    final_carry: torch.Tensor
+
+    @property
+    def cap(self) -> int:
+        return self.keys.shape[0]
+
+    @staticmethod
+    def empty(L: int, P: int, cap: int, device) -> "SweepBuffers":
+        return SweepBuffers(
+            keys=torch.empty(cap, dtype=torch.int64, device=device),
+            count=torch.empty(1, dtype=torch.int64, device=device),
+            final_state=torch.empty(L, dtype=torch.int32, device=device),
+            final_carry=torch.empty(P + 1, dtype=torch.int32, device=device))
+
+
+def _check(symbols, scores, init_state, init_carry, reset_rows, row_offset,
+           pos_offset, out: SweepBuffers) -> None:
+    def need(ok, msg):
+        if not ok:
+            raise ValueError(msg)
+
+    need(symbols.dtype == torch.uint8 and symbols.dim() == 1,
+         "symbols must be a 1-D uint8 tensor")
+    need(scores.dtype == torch.int8 and scores.dim() == 2,
+         "scores must be a (P, card) int8 tensor")
+    L, (P, card) = symbols.shape[0], scores.shape
+    need(L >= 1 and P >= 1, "empty sweep")
+    need(2 <= card <= 32, f"cardinality {card} unsupported (2..32)")
+    need(L < (1 << 31), "sequence chunk must be shorter than 2^31")
+    need(row_offset >= 0 and row_offset + P <= MAX_ROW,
+         "hit rows must be < 2^25 (key layout)")
+    need(pos_offset >= 0 and pos_offset + L <= MAX_POS,
+         "hit positions must be < 2^38 (key layout)")
+    need(init_state.dtype == torch.int32 and init_state.shape == (L,),
+         "init_state must be int32 (L,)")
+    need(init_carry.dtype == torch.int32 and init_carry.shape == (P + 1,),
+         "init_carry must be int32 (P+1,)")
+    if reset_rows is not None:
+        need(reset_rows.dtype == torch.int32 and reset_rows.shape == (P,),
+             "reset_rows must be int32 (P,)")
+    need(out.final_state.shape == (L,) and out.final_carry.shape == (P + 1,)
+         and out.count.shape == (1,), "output buffers do not match the sweep")
+    tensors = [symbols, scores, init_state, init_carry, *out.__dict__.values()]
+    if reset_rows is not None:
+        tensors.append(reset_rows)
+    dev = symbols.device
+    for t in tensors:
+        need(t.device == dev, "all tensors must be on one device")
+        need(t.is_contiguous(), "all tensors must be contiguous")
+
+
+def launch(symbols: torch.Tensor, scores: torch.Tensor,
+           init_state: torch.Tensor, init_carry: torch.Tensor,
+           reset_rows: Optional[torch.Tensor], row_offset: int,
+           pos_offset: int, out: SweepBuffers) -> None:
+    """Enqueue one sweep into ``out``; on CUDA tensors this launches the
+    kernel on the current stream and does not synchronise. ``out.keys``
+    receives the first ``out.cap`` hit keys, ``out.count`` the exact count.
+    Symbol codes must be < card (the engine checks them once on the host)."""
+    global LAUNCHES
+    _check(symbols, scores, init_state, init_carry, reset_rows, row_offset,
+           pos_offset, out)
+    dev = symbols.device
+    if dev.type == "cpu":
+        keys, state, carry = ssv_sweep_plain(symbols, scores, init_state,
+                                             init_carry, reset_rows,
+                                             row_offset, pos_offset)
+        n = keys.shape[0]
+        out.count.fill_(n)
+        out.keys[:min(n, out.cap)] = keys[:out.cap]
+        out.final_state.copy_(state)
+        out.final_carry.copy_(carry)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.hv_ssv_sweep(
+            symbols.data_ptr(), symbols.shape[0], scores.data_ptr(),
+            scores.shape[0], scores.shape[1], init_state.data_ptr(),
+            init_carry.data_ptr(),
+            None if reset_rows is None else reset_rows.data_ptr(),
+            row_offset, pos_offset, out.final_state.data_ptr(),
+            out.final_carry.data_ptr(), out.keys.data_ptr(), out.cap,
+            out.count.data_ptr(), stream)
+    LAUNCHES += 1
+    if rc != 0:
+        raise RuntimeError(
+            f"ssv_sweep kernel launch failed: {lib.hv_error_string(rc).decode()}")
+
+
+@dataclass
+class SweepResult:
+    keys: torch.Tensor  # int64 (count,), unordered on CUDA
+    count: int
+    final_state: torch.Tensor
+    final_carry: torch.Tensor
+    regrown: bool  # the first key buffer was too small
+
+
+def ssv_sweep(symbols: torch.Tensor, scores: torch.Tensor,
+              init_state: Optional[torch.Tensor] = None,
+              init_carry: Optional[torch.Tensor] = None,
+              reset_rows: Optional[torch.Tensor] = None, row_offset: int = 0,
+              pos_offset: int = 0, cap: int = 1 << 20) -> SweepResult:
+    """Synchronous sweep returning every hit key. Zero boundary conditions
+    when ``init_state`` / ``init_carry`` are None. If the exact count exceeds
+    ``cap`` the key buffer is regrown once to that count and the sweep runs
+    again."""
+    dev = symbols.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    L, P = symbols.shape[0], scores.shape[0]
+    if init_state is None:
+        init_state = torch.zeros(L, dtype=torch.int32, device=dev)
+    if init_carry is None:
+        init_carry = torch.zeros(P + 1, dtype=torch.int32, device=dev)
+    if int(symbols.max()) >= scores.shape[1]:
+        raise ValueError("symbol code >= alphabet cardinality")
+    out = SweepBuffers.empty(L, P, max(cap, 1), dev)
+    launch(symbols, scores, init_state, init_carry, reset_rows, row_offset,
+           pos_offset, out)
+    n = int(out.count.item())
+    regrown = n > out.cap
+    if regrown:
+        out = SweepBuffers.empty(L, P, n, dev)
+        launch(symbols, scores, init_state, init_carry, reset_rows,
+               row_offset, pos_offset, out)
+        n2 = int(out.count.item())
+        if n2 != n:
+            raise RuntimeError(f"hit count changed on relaunch ({n} -> {n2})")
+    return SweepResult(out.keys[:n], n, out.final_state, out.final_carry,
+                       regrown)

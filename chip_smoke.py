@@ -20,13 +20,32 @@ Phases (each prints its own lines; any failure exits non-zero):
              plain version's on the card, and that a sample of raw hits
              re-derives by bounded re-SSV.
 5. timing  — the kernel and the plain version at one main-path chunk shape.
+6. percell — the per-cell DP readouts of havac_tpu_torch.testing.percell on
+             the card: dp_matrix_kernel (one launch of the kernel's row-dump
+             variant) against dp_matrix_torch (the plain version) cell for
+             cell at full model width (the main path's 10,020 projected rows
+             x the first 262,144 positions of the chromosome), twice more
+             into buffers prefilled with 0x00 and 0xFF (every cell written),
+             a card-20 case and a case with reset rows and a non-zero carry
+             column; dp_matrix_rows (one launch per row) on 512 rows against
+             the dump; the dump kernel's and the plain version's times.
+7. scan    — the chromosome as 4 FASTA files through
+             Havac(device="cuda").scan_files, each file's hits against a
+             fresh run on that file; the ``serve`` subcommand as a
+             subprocess answering two of the files, a missing path (an error
+             line, the server stays up) and ``quit``; one ``benchmark``
+             subcommand on one file.
 
-The line before the last is the kernels' JSON record; the last line is
+Each path is driven with the launch counters set to 0 just before it and
+read just after; the run fails if a kernel of the path did not launch. The
+line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -37,16 +56,26 @@ import time
 import numpy as np
 import torch
 
-from havac_tpu_torch.engine import Havac
+from havac_tpu_torch.engine import Havac, cli
 from havac_tpu_torch.ops import ssv_cuda
 from havac_tpu_torch.ops.ssv_torch import ssv_sweep_plain
-from havac_tpu_torch.testing.workload import CHR22_LENGTH, write_workload
+from havac_tpu_torch.testing.percell import (compare_matrices,
+                                             dp_matrix_kernel, dp_matrix_rows,
+                                             dp_matrix_torch)
+from havac_tpu_torch.testing.workload import (CHR22_LENGTH, write_fasta,
+                                              write_workload)
 
 SEED = 7
 MODEL_POSITIONS = 10020  # tools/runtime_table.py's 10k point
 P_VALUE = 0.02
 SOURCE = "havac_tpu_torch/csrc/ssv_sweep.cu"
-REPLACES = "havac_tpu/ops/ssv_swar.py:542"
+REPLACES = "havac_tpu/ops/ssv_swar.py:542; havac_tpu/ops/ssv_pallas.py:167"
+DUMP_REPLACES = ("havac_tpu/ops/ssv_swar.py:542 (debug_rows); "
+                 "havac_tpu/testing/percell.py:62 (_ssv_pallas_jit row "
+                 "readout)")
+PERCELL_POSITIONS = 262_144
+PERCELL_ROWS_BY_LAUNCH = 512
+SCAN_FILES = 4
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -158,52 +187,188 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        log("CUDA is not available: this smoke test needs an NVIDIA GPU")
-        return 2
-    dev = torch.device("cuda:0")
-    kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
-    log(f"[device] {kind}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}; {torch.cuda.device_count()} device(s)")
-    log(smi)
+def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest |a - b| over two (P, L) matrices, a band of rows at a time."""
+    band = max(1, (1 << 24) // a.shape[1])
+    err = 0
+    for r0 in range(0, a.shape[0], band):
+        d = a[r0:r0 + band].int() - b[r0:r0 + band].int()
+        err = max(err, int(d.abs().max()))
+    return err
 
+
+def same_matrix(tag: str, want: torch.Tensor, got: torch.Tensor) -> int:
+    if want.shape != got.shape:
+        raise AssertionError(f"{tag}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    err = max_abs_err(want, got)
+    if err:
+        raise AssertionError(f"{tag}: cells differ by up to {err}; first: "
+                             f"{compare_matrices(want, got, max_report=8)}")
+    return err
+
+
+def phase_percell(dev, engine, smi) -> dict:
+    db = engine.database
+    start = int(db.starts[0])
+    codes = torch.from_numpy(np.ascontiguousarray(
+        db.codes[start:start + PERCELL_POSITIONS])).to(dev)
+    scores = torch.from_numpy(engine.scores).to(dev)
+    P, L = scores.shape[0], codes.shape[0]
+
+    start_ev, end_ev = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+    start_ev.record()
+    want = dp_matrix_torch(codes, scores)
+    end_ev.record()
+    torch.cuda.synchronize()
+    plain_ms = start_ev.elapsed_time(end_ev)
+
+    ssv_cuda.LAUNCHES = ssv_cuda.DUMP_LAUNCHES = 0
+    got = dp_matrix_kernel(codes, scores)
+    torch.cuda.synchronize()
+    launches = ssv_cuda.DUMP_LAUNCHES
+    if launches == 0 or ssv_cuda.LAUNCHES != 0:
+        raise AssertionError(f"dp_matrix_kernel: DUMP_LAUNCHES={launches}, "
+                             f"LAUNCHES={ssv_cuda.LAUNCHES}")
+    err = same_matrix("full width", want, got)
+    log(f"[percell] dp_matrix_kernel == dp_matrix_torch at {P} x {L} "
+        f"({P * L} cells), DUMP_LAUNCHES={launches}")
+    for fill in (0x00, 0xFF):  # the wrapper dp_matrix_kernel launches
+        got.fill_(fill)
+        ssv_cuda.ssv_sweep(codes, scores, dump=got)
+        err = max(err, same_matrix(f"prefilled 0x{fill:02X}", want, got))
+    log("[percell] dumps into buffers prefilled with 0x00 and 0xFF: exact "
+        "(every cell written)")
+
+    ssv_cuda.LAUNCHES = 0
+    rows = dp_matrix_rows(codes, scores[:PERCELL_ROWS_BY_LAUNCH])
+    torch.cuda.synchronize()
+    if ssv_cuda.LAUNCHES != PERCELL_ROWS_BY_LAUNCH:
+        raise AssertionError(f"dp_matrix_rows: LAUNCHES={ssv_cuda.LAUNCHES}")
+    err = max(err, same_matrix("rows", got[:PERCELL_ROWS_BY_LAUNCH], rows))
+    log(f"[percell] dp_matrix_rows ({PERCELL_ROWS_BY_LAUNCH} launches) == the "
+        f"dump on {PERCELL_ROWS_BY_LAUNCH} x {L}")
+    del rows
+
+    # Timing: the dump variant and the plain version at the same shape.
+    out = ssv_cuda.SweepBuffers.empty(L, P, 1 << 20, dev)
+    zs = torch.zeros(L, dtype=torch.int32, device=dev)
+    zc = torch.zeros(P + 1, dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: ssv_cuda.launch(codes, scores, zs, zc, None, 0, 0,
+                                         out, dump=got), reps=5)
+    undumped_ms = cuda_ms(lambda: ssv_cuda.launch(codes, scores, zs, zc, None,
+                                                  0, 0, out), reps=5)
+    log(f"[percell] {P} x {L}: dump kernel {ms:.3f} ms, undumped kernel "
+        f"{undumped_ms:.3f} ms, plain dp_matrix_torch {plain_ms:.3f} ms; {smi}")
+    del want, got, out
+
+    rng = np.random.default_rng(SEED + 1)
+    for tag, Lc, Pc, card, carry_reset in (("card20", 100_003, 2_000, 20, False),
+                                           ("carry-reset", 100_003, 2_000, 4,
+                                            True)):
+        sym = torch.from_numpy(rng.integers(0, card, Lc).astype(np.uint8)
+                               ).to(dev)
+        sc = torch.from_numpy(rng.integers(-40, 70, (Pc, card))
+                              .astype(np.int8)).to(dev)
+        icr = rr = None
+        if carry_reset:
+            icr = torch.from_numpy(rng.integers(0, 256, Pc + 1)
+                                   .astype(np.int32)).to(dev)
+            rr = torch.from_numpy((rng.random(Pc) < 0.05).astype(np.int32)
+                                  ).to(dev)
+        err = max(err, same_matrix(tag, dp_matrix_torch(sym, sc, icr, rr),
+                                   dp_matrix_kernel(sym, sc, icr, rr)))
+        log(f"[percell] {tag}: {Pc} x {Lc} card={card} exact")
+    return {"launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def phase_scan(dev, engine, hmm, work) -> None:
+    db = engine.database
+    start, n = int(db.starts[0]), int(db.lengths[0])
+    parts = np.array_split(db.codes[start:start + n], SCAN_FILES)
+    paths = []
+    for i, part in enumerate(parts):
+        paths.append(os.path.join(work, f"part{i}.fasta"))
+        write_fasta(paths[-1], f"synth-chr-part{i}", part)
+
+    scanner = Havac(p_value=P_VALUE, device=dev).load_phmm(hmm)
+    chunks = 0
+    scanned = []
     t0 = time.perf_counter()
-    path = ssv_cuda.build()
-    log(f"[build] {os.path.relpath(path, ROOT)} in "
-        f"{time.perf_counter() - t0:.3f} s (nvcc {ssv_cuda.build_seconds:.3f} s)")
-    for line in ssv_cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"[build] {line.strip()}")
+    ssv_cuda.LAUNCHES = 0
+    for path, hits in scanner.scan_files(paths, prefetch=1):
+        chunks += scanner.stats.num_chunks
+        scanned.append((path, hits))
+    launches = ssv_cuda.LAUNCHES
+    t_scan = time.perf_counter() - t0
+    if launches == 0 or launches != chunks:
+        raise AssertionError(f"scan_files: LAUNCHES={launches} != "
+                             f"chunks={chunks}")
+    if [p for p, _ in scanned] != paths:
+        raise AssertionError("scan_files yielded other files")
+    log(f"[scan] scan_files over {len(paths)} files ({n} positions) in "
+        f"{t_scan:.3f} s: hits {[len(h) for _, h in scanned]}, "
+        f"LAUNCHES={launches}")
+    for path, hits in scanned:
+        fresh = Havac(p_value=P_VALUE, device=dev).load_phmm(hmm)
+        want = fresh.load_sequence(path).run().hits()
+        if len(hits) == 0 or hits.as_tuples() != want.as_tuples():
+            raise AssertionError(f"{path}: scan_files {len(hits)} hits, "
+                                 f"a fresh run {len(want)}")
+    log("[scan] every file's hits equal a fresh Havac(device='cuda') run")
 
-    max_err = phase_kernel(dev)
+    missing = os.path.join(work, "missing.fasta")
+    req = f"{paths[0]}\n\n{paths[1]}\n{missing}\nquit\n"
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "havac_tpu_torch.engine.cli", "serve",
+         "--hmm", hmm, "--device", "cuda", "--pvalue", str(P_VALUE)],
+        input=req, capture_output=True, text=True, timeout=600, cwd=ROOT)
+    if res.returncode != 0:
+        raise AssertionError(f"serve exited {res.returncode}: "
+                             f"{res.stderr[-2000:]}")
+    lines = [json.loads(ln) for ln in res.stdout.splitlines()]
+    want = [{"ready": True, "models": len(engine.models)}]
+    if (len(lines) != 4 or lines[0] != want[0]
+            or [ln.get("hits") for ln in lines[1:3]]
+            != [len(h) for _, h in scanned[:2]]
+            or lines[3].get("file") != missing or "error" not in lines[3]):
+        raise AssertionError(f"serve answered {lines}")
+    log(f"[scan] serve ({time.perf_counter() - t0:.3f} s): "
+        + " | ".join(json.dumps(ln) for ln in lines))
 
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["benchmark", "--hmm", hmm, "--fasta", paths[0],
+                       "--device", "cuda", "--pvalue", str(P_VALUE)])
+    report = json.loads(buf.getvalue())
+    if (rc != 0 or report["num_hits"] != len(scanned[0][1])
+            or report["backend"] != "cuda"):
+        raise AssertionError(f"benchmark rc={rc}: {report}")
+    log(f"[scan] benchmark {os.path.basename(paths[0])}: "
+        f"{json.dumps(report)}")
+
+
+def run_paths(dev, smi, work, max_err) -> dict:
     # ---- main path at the published 10k point
-    work = os.path.join(ROOT, "build", "chip_smoke")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
-    try:
-        t0 = time.perf_counter()
-        hmm, fasta = write_workload(work, MODEL_POSITIONS, CHR22_LENGTH, SEED)
-        log(f"[main] workload written in {time.perf_counter() - t0:.3f} s")
-        ssv_cuda.LAUNCHES = 0
-        t0 = time.perf_counter()
-        engine = Havac(p_value=P_VALUE, device=dev)
-        engine.load_phmm(hmm)
-        engine.load_sequence(fasta)
-        t_load = time.perf_counter()
-        engine.warmup()
-        t_warm = time.perf_counter()
-        engine.run()
-        t_run = time.perf_counter()
-        hits = engine.hits()
-        t_end = time.perf_counter()
-        launches = ssv_cuda.LAUNCHES
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    hmm, fasta = write_workload(work, MODEL_POSITIONS, CHR22_LENGTH, SEED)
+    log(f"[main] workload written in {time.perf_counter() - t0:.3f} s")
+    ssv_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    engine = Havac(p_value=P_VALUE, device=dev)
+    engine.load_phmm(hmm)
+    engine.load_sequence(fasta)
+    t_load = time.perf_counter()
+    engine.warmup()
+    t_warm = time.perf_counter()
+    engine.run()
+    t_run = time.perf_counter()
+    hits = engine.hits()
+    t_end = time.perf_counter()
+    launches = ssv_cuda.LAUNCHES
     st = engine.stats
     geo = st.chunk_geometry
     L, P = engine.database.padded_length, engine.scores.shape[0]
@@ -269,11 +434,51 @@ def main() -> int:
     log(f"[timing] chunk {codes.shape[0]} x {rchunk}: kernel {ms:.3f} ms "
         f"({cells / ms / 1e6:.2f} GCUPS), plain {plain_ms:.3f} ms "
         f"({cells / plain_ms / 1e6:.2f} GCUPS); {smi}")
+    del codes, tsc, ist, icr, out
 
-    log(json.dumps({"kernels": [{
-        "name": "ssv_sweep", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+    # ---- the per-cell readouts, then the multi-file paths
+    dump = phase_percell(dev, engine, smi)
+    phase_scan(dev, engine, hmm, work)
+
+    return {"kernels": [
+        {"name": "ssv_sweep", "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
+         "ms": ms, "plain_ms": plain_ms},
+        {"name": "ssv_sweep_dump", "route": "cuda", "source": SOURCE,
+         "replaces": DUMP_REPLACES, **dump}]}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        log("CUDA is not available: this smoke test needs an NVIDIA GPU")
+        return 2
+    dev = torch.device("cuda:0")
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    log(f"[device] {kind}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}; {torch.cuda.device_count()} device(s)")
+    log(smi)
+
+    t0 = time.perf_counter()
+    path = ssv_cuda.build()
+    log(f"[build] {os.path.relpath(path, ROOT)} in "
+        f"{time.perf_counter() - t0:.3f} s (nvcc {ssv_cuda.build_seconds:.3f} s)")
+    for line in ssv_cuda.build_log.splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            log(f"[build] {line.strip()}")
+
+    max_err = phase_kernel(dev)
+
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        record = run_paths(dev, smi, work, max_err)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

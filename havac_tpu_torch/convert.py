@@ -4,7 +4,9 @@ The system has no weights; its parameters are the projected score rows and
 the database tables, and its chain state is the DP row state and the carry
 column. These helpers turn the JAX engine's numpy state into the port's
 tensors. They import nothing of JAX: the SWAR unpacking is reimplemented
-here (`havac_tpu/ops/ssv_swar.py` `unpack_state` imports jax).
+here (`havac_tpu/ops/ssv_swar.py` `unpack_state` imports jax). Either JAX
+kernel's chain state carries over: :func:`state_from_swar` reads the SWAR
+kernel's, :func:`state_from_unpacked` the unpacked kernel's.
 """
 
 from __future__ import annotations
@@ -69,6 +71,15 @@ def state_from_swar(packed: np.ndarray, device) -> torch.Tensor:
                        for f in range(3)], axis=1)
     return torch.from_numpy(
         fields.reshape(-1).astype(np.int32)).to(torch.device(device))
+
+
+def state_from_unpacked(blocks: np.ndarray, device) -> torch.Tensor:
+    """The unpacked kernel's (B, WS, 128) int32 row state (``ostate`` of
+    `havac_tpu/ops/ssv_pallas.py` `_ssv_pallas_jit`) as the (B*W,) int32
+    state the port chains (W = WS*128): word (b, r, c) holds position
+    b*W + r*128 + c, so the state is the blocks read in order."""
+    flat = np.ascontiguousarray(blocks, dtype=np.int32).reshape(-1)
+    return torch.from_numpy(flat.copy()).to(torch.device(device))
 
 
 def checkpoint_from_reference(path: str

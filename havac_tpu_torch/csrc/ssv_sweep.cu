@@ -26,6 +26,27 @@
 // the count is exact past the cap so the caller can regrow once.
 // Several diagonals per 32-bit word (__vadd4 / __vmaxs4), DPX and persistent
 // blocks are later work.
+//
+// The same kernel also stands for the unpacked Pallas kernel
+// havac_tpu/ops/ssv_pallas.py `_ssv_kernel` (launched by `_ssv_pallas_jit`):
+// it computes the same recurrence one cell per int32, and its strip bitmaps
+// are what the hit keys replace here.
+//
+// Row-dump variant (kDump, a non-null `dump`): the per-cell debug readout.
+// It replaces the SWAR kernel's `debug_rows` output (the packed state after
+// every row, havac_tpu/ops/ssv_swar.py `_ssv_swar_jit(debug_rows=True)`) and
+// the row-by-row `_ssv_pallas_jit` readout of havac_tpu/testing/percell.py
+// `dp_matrix_pallas`. Every active cell's post-update state is stored to
+// dump[j * L + i] as one byte: a post-update state lies in [0, 255] (a sum
+// >= 256 is a hit and resets to 0, a sum < 0 floors to 0), so uint8 is exact.
+// Consecutive threads own consecutive diagonals, hence consecutive positions
+// of a row, so a warp's 32 stores fill one 32-byte sector. What bounds it:
+// the arithmetic stays at about eight warp instructions per 32 cells, and
+// the dump adds one store instruction and one 32-byte sector of device-memory
+// writes per 32 cells, a byte per cell where the undumped sweep writes almost
+// nothing; the write traffic is what grows with the matrix. It is a debug
+// path: its time is recorded in PERF.md, not tuned. Keys, the exact count,
+// final_state and final_carry are the same as an undumped launch's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,7 +57,7 @@ constexpr int kThreads = 256;  // diagonals per block
 constexpr int kRows = 64;      // model rows staged per shared-memory tile
 constexpr int kMaxCard = 32;
 
-template <bool kReset>
+template <bool kReset, bool kDump>
 __global__ void __launch_bounds__(kThreads)
 ssv_sweep_kernel(const uint8_t* __restrict__ symbols, long long L,
                  const int8_t* __restrict__ scores, int P, int card,
@@ -48,7 +69,8 @@ ssv_sweep_kernel(const uint8_t* __restrict__ symbols, long long L,
                  int32_t* __restrict__ final_carry,
                  unsigned long long* __restrict__ keys,
                  unsigned long long cap,
-                 unsigned long long* __restrict__ count) {
+                 unsigned long long* __restrict__ count,
+                 uint8_t* __restrict__ dump) {
   // A symbol code >= card must not read outside the tile (the engine
   // validates codes on the host; the slack keeps any byte in bounds).
   __shared__ int32_t s_scores[kRows * kMaxCard + 256];
@@ -99,6 +121,8 @@ ssv_sweep_kernel(const uint8_t* __restrict__ symbols, long long L,
         const int32_t s = in + s_scores[k * card + s_sym[tid + k]];
         hit = s >= 256;
         state = (s < 0 || hit) ? 0 : s;
+        // 64-bit offset: a full-width dump exceeds 2^31 cells.
+        if (kDump) dump[(long long)j * L + d + j] = (uint8_t)state;
       }
       const unsigned mask = __ballot_sync(0xffffffffu, hit);
       if (mask) {
@@ -124,14 +148,22 @@ ssv_sweep_kernel(const uint8_t* __restrict__ symbols, long long L,
   }
 }
 
+template <bool kReset, bool kDump, typename... Args>
+void launch(unsigned grid, cudaStream_t s, Args... args) {
+  ssv_sweep_kernel<kReset, kDump><<<grid, kThreads, 0, s>>>(args...);
+}
+
 }  // namespace
 
+// `reset_rows` and `dump` may be null: no reset rows, no row dump. `dump`
+// is (P, L) uint8, row-major.
 extern "C" int hv_ssv_sweep(const void* symbols, long long L, const void* scores,
                             int P, int card, const void* init_state,
                             const void* init_carry, const void* reset_rows,
                             long long row_offset, long long pos_offset,
                             void* final_state, void* final_carry, void* keys,
-                            unsigned long long cap, void* count, void* stream) {
+                            unsigned long long cap, void* count, void* dump,
+                            void* stream) {
   if (L <= 0 || P <= 0 || card < 2 || card > kMaxCard) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned long long), s);
@@ -147,14 +179,19 @@ extern "C" int hv_ssv_sweep(const void* symbols, long long L, const void* scores
   auto* fcr = (int32_t*)final_carry;
   auto* k = (unsigned long long*)keys;
   auto* c = (unsigned long long*)count;
-  if (rst != nullptr) {
-    ssv_sweep_kernel<true><<<grid, kThreads, 0, s>>>(sym, L, sc, P, card, ist, icr, rst,
-                                                     row_offset, pos_offset, fst, fcr,
-                                                     k, cap, c);
+  auto* dmp = (uint8_t*)dump;
+  if (rst != nullptr && dmp != nullptr) {
+    launch<true, true>(grid, s, sym, L, sc, P, card, ist, icr, rst, row_offset,
+                       pos_offset, fst, fcr, k, cap, c, dmp);
+  } else if (rst != nullptr) {
+    launch<true, false>(grid, s, sym, L, sc, P, card, ist, icr, rst, row_offset,
+                        pos_offset, fst, fcr, k, cap, c, dmp);
+  } else if (dmp != nullptr) {
+    launch<false, true>(grid, s, sym, L, sc, P, card, ist, icr, rst, row_offset,
+                        pos_offset, fst, fcr, k, cap, c, dmp);
   } else {
-    ssv_sweep_kernel<false><<<grid, kThreads, 0, s>>>(sym, L, sc, P, card, ist, icr, rst,
-                                                      row_offset, pos_offset, fst, fcr,
-                                                      k, cap, c);
+    launch<false, false>(grid, s, sym, L, sc, P, card, ist, icr, rst, row_offset,
+                         pos_offset, fst, fcr, k, cap, c, dmp);
   }
   return (int)cudaGetLastError();
 }

@@ -19,10 +19,11 @@ from __future__ import annotations
 import enum
 import logging
 import os
+import queue
 import threading
 import zlib
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,6 +41,7 @@ from havac_tpu.scoring.reprojection import project_models
 from havac_tpu_torch.engine.pipeline import PipelinedSweep, pairs_from_keys
 
 DEFAULT_P_VALUE = 0.02  # the reference CLI's default
+SCAN_PRODUCER_THREAD = "havac-scan-producer"
 
 log = logging.getLogger("havac_tpu_torch.engine")
 
@@ -206,27 +208,35 @@ class Havac:
                       is_text: bool = False) -> "Havac":
         """Load and encode a FASTA database (path, or text with
         ``is_text=True``), or take an encoded SequenceDatabase."""
-        if isinstance(src, SequenceDatabase):
-            self.database = src
-        else:
-            self.database = load_fasta_database(
-                src, pad_multiple=self.pad_multiple, seed=self.seed,
-                is_text=is_text, alphabet=self.alphabet)
-        if getattr(self.database, "alphabet", "dna") != self.alphabet:
-            raise HavacUsageError(
-                f"database alphabet {self.database.alphabet!r} does not "
-                f"match the loaded models ({self.alphabet!r}); call "
-                "load_phmm before load_sequence so the encoder matches")
-        if self.strand == "both":
-            self._n_forward = self.database.num_sequences
-            self.database = augment_with_reverse_complement(
-                self.database, pad_multiple=self.pad_multiple)
+        self.database, self._n_forward = self._encode(src, is_text)
         log.info("loaded %d sequences, %d positions (padded %d)",
                  self.database.num_sequences,
                  int(self.database.lengths.sum()),
                  self.database.padded_length)
         self._warm_sweep = None
         return self
+
+    def _encode(self, src: Union[str, SequenceDatabase],
+                is_text: bool = False) -> Tuple[SequenceDatabase, int]:
+        """The database to sweep for ``src`` (encoded in the loaded models'
+        alphabet, reverse complements appended for strand='both') and its
+        number of forward records."""
+        if isinstance(src, SequenceDatabase):
+            db = src
+        else:
+            db = load_fasta_database(
+                src, pad_multiple=self.pad_multiple, seed=self.seed,
+                is_text=is_text, alphabet=self.alphabet)
+        if getattr(db, "alphabet", "dna") != self.alphabet:
+            raise HavacUsageError(
+                f"database alphabet {db.alphabet!r} does not match the "
+                f"loaded models ({self.alphabet!r}); call load_phmm before "
+                "load_sequence so the encoder matches")
+        n_forward = db.num_sequences
+        if self.strand == "both":
+            db = augment_with_reverse_complement(
+                db, pad_multiple=self.pad_multiple)
+        return db, n_forward
 
     def warmup(self) -> "Havac":
         """Build (or load) the sweep kernel and stage the database and the
@@ -253,6 +263,70 @@ class Havac:
             self._codes(), self.scores, self.chunk_symbols, self.chunk_rows,
             self.device, self.database, self.phmm_prefix,
             reset_rows=self.reset_rows)
+
+    def scan_files(self, fasta_paths: Sequence[str], prefetch: int = 1
+                   ) -> Iterator[Tuple[str, ResolvedHits]]:
+        """Streaming scan over many FASTA files; yields ``(path,
+        ResolvedHits)`` per file.
+
+        A producer thread parses and encodes file i+1 (up to ``prefetch``
+        files ahead) while file i sweeps on the device. Each file is an
+        independent database: the DP carry does not flow across files, and
+        hit coordinates are local to the yielded file. A producer error is
+        raised here, on the consumer side. Closing the generator early stops
+        the producer: its queue puts give up once the consumer is gone.
+        Files are encoded in the loaded models' alphabet."""
+        if self.scores is None:
+            raise HavacUsageError("load_phmm must be called before scan_files")
+        q: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))
+        stop = threading.Event()
+        end = object()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for path in fasta_paths:
+                    if stop.is_set():
+                        return
+                    db, n_forward = self._encode(path)
+                    if not put((path, db, n_forward)):
+                        return
+            except Exception as exc:  # raised on the consumer side
+                put((None, exc, 0))
+            finally:
+                put(end)
+
+        thread = threading.Thread(target=producer, daemon=True,
+                                  name=SCAN_PRODUCER_THREAD)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    break
+                path, db, n_forward = item
+                if path is None:
+                    raise db
+                self.database = db
+                self._n_forward = n_forward
+                self._warm_sweep = None  # a warmed sweep staged other codes
+                self.run()
+                yield path, self.hits()
+        finally:
+            stop.set()
+            while not q.empty():  # unblock a producer waiting on put()
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
 
     # ------------------------------------------------------------------- run
 

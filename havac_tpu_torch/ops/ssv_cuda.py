@@ -11,7 +11,10 @@ exact hit count and, when it exceeds the key buffer, regrows the buffer
 once to that count and launches again. Both dispatch on the tensors'
 device: CPU tensors go to the plain version
 (:func:`havac_tpu_torch.ops.ssv_torch.ssv_sweep_plain`), CUDA tensors to the
-kernel, anything else raises. ``LAUNCHES`` counts kernel launches.
+kernel, anything else raises. Given a ``dump`` tensor, either form also
+writes every post-update state into it (the kernel's row-dump variant, for
+per-cell debugging). ``LAUNCHES`` counts sweep launches, ``DUMP_LAUNCHES``
+launches of the row-dump variant.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ import torch
 
 from havac_tpu_torch.ops.ssv_torch import MAX_POS, MAX_ROW, ssv_sweep_plain
 
-LAUNCHES = 0  # kernel launches (CUDA tensors only) in this process
+LAUNCHES = 0  # sweep kernel launches (CUDA tensors only) in this process
+DUMP_LAUNCHES = 0  # row-dump variant launches (CUDA tensors only)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -98,7 +102,8 @@ def _load() -> ctypes.CDLL:
             p, i64, u64 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong
             lib.hv_ssv_sweep.restype = ctypes.c_int
             lib.hv_ssv_sweep.argtypes = [p, i64, p, ctypes.c_int, ctypes.c_int,
-                                         p, p, p, i64, i64, p, p, p, u64, p, p]
+                                         p, p, p, i64, i64, p, p, p, u64, p, p,
+                                         p]
             lib.hv_error_string.restype = ctypes.c_char_p
             lib.hv_error_string.argtypes = [ctypes.c_int]
             _lib = lib
@@ -130,7 +135,7 @@ class SweepBuffers:
 
 
 def _check(symbols, scores, init_state, init_carry, reset_rows, row_offset,
-           pos_offset, out: SweepBuffers) -> None:
+           pos_offset, out: SweepBuffers, dump) -> None:
     def need(ok, msg):
         if not ok:
             raise ValueError(msg)
@@ -156,9 +161,11 @@ def _check(symbols, scores, init_state, init_carry, reset_rows, row_offset,
              "reset_rows must be int32 (P,)")
     need(out.final_state.shape == (L,) and out.final_carry.shape == (P + 1,)
          and out.count.shape == (1,), "output buffers do not match the sweep")
+    if dump is not None:
+        need(dump.dtype == torch.uint8 and dump.shape == (P, L),
+             "dump must be a (P, L) uint8 tensor")
     tensors = [symbols, scores, init_state, init_carry, *out.__dict__.values()]
-    if reset_rows is not None:
-        tensors.append(reset_rows)
+    tensors += [t for t in (reset_rows, dump) if t is not None]
     dev = symbols.device
     for t in tensors:
         need(t.device == dev, "all tensors must be on one device")
@@ -168,19 +175,22 @@ def _check(symbols, scores, init_state, init_carry, reset_rows, row_offset,
 def launch(symbols: torch.Tensor, scores: torch.Tensor,
            init_state: torch.Tensor, init_carry: torch.Tensor,
            reset_rows: Optional[torch.Tensor], row_offset: int,
-           pos_offset: int, out: SweepBuffers) -> None:
+           pos_offset: int, out: SweepBuffers,
+           dump: Optional[torch.Tensor] = None) -> None:
     """Enqueue one sweep into ``out``; on CUDA tensors this launches the
     kernel on the current stream and does not synchronise. ``out.keys``
     receives the first ``out.cap`` hit keys, ``out.count`` the exact count.
+    ``dump`` (P, L) uint8, when given, receives every post-update state
+    (row-major: dump[j, i] = S[j][i]) and selects the row-dump variant.
     Symbol codes must be < card (the engine checks them once on the host)."""
-    global LAUNCHES
+    global LAUNCHES, DUMP_LAUNCHES
     _check(symbols, scores, init_state, init_carry, reset_rows, row_offset,
-           pos_offset, out)
+           pos_offset, out, dump)
     dev = symbols.device
     if dev.type == "cpu":
         keys, state, carry = ssv_sweep_plain(symbols, scores, init_state,
                                              init_carry, reset_rows,
-                                             row_offset, pos_offset)
+                                             row_offset, pos_offset, dump)
         n = keys.shape[0]
         out.count.fill_(n)
         out.keys[:min(n, out.cap)] = keys[:out.cap]
@@ -199,8 +209,12 @@ def launch(symbols: torch.Tensor, scores: torch.Tensor,
             None if reset_rows is None else reset_rows.data_ptr(),
             row_offset, pos_offset, out.final_state.data_ptr(),
             out.final_carry.data_ptr(), out.keys.data_ptr(), out.cap,
-            out.count.data_ptr(), stream)
-    LAUNCHES += 1
+            out.count.data_ptr(), None if dump is None else dump.data_ptr(),
+            stream)
+    if dump is None:
+        LAUNCHES += 1
+    else:
+        DUMP_LAUNCHES += 1
     if rc != 0:
         raise RuntimeError(
             f"ssv_sweep kernel launch failed: {lib.hv_error_string(rc).decode()}")
@@ -219,11 +233,12 @@ def ssv_sweep(symbols: torch.Tensor, scores: torch.Tensor,
               init_state: Optional[torch.Tensor] = None,
               init_carry: Optional[torch.Tensor] = None,
               reset_rows: Optional[torch.Tensor] = None, row_offset: int = 0,
-              pos_offset: int = 0, cap: int = 1 << 20) -> SweepResult:
+              pos_offset: int = 0, cap: int = 1 << 20,
+              dump: Optional[torch.Tensor] = None) -> SweepResult:
     """Synchronous sweep returning every hit key. Zero boundary conditions
     when ``init_state`` / ``init_carry`` are None. If the exact count exceeds
     ``cap`` the key buffer is regrown once to that count and the sweep runs
-    again."""
+    again. ``dump`` as for :func:`launch`."""
     dev = symbols.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
@@ -236,13 +251,13 @@ def ssv_sweep(symbols: torch.Tensor, scores: torch.Tensor,
         raise ValueError("symbol code >= alphabet cardinality")
     out = SweepBuffers.empty(L, P, max(cap, 1), dev)
     launch(symbols, scores, init_state, init_carry, reset_rows, row_offset,
-           pos_offset, out)
+           pos_offset, out, dump)
     n = int(out.count.item())
     regrown = n > out.cap
     if regrown:
         out = SweepBuffers.empty(L, P, n, dev)
         launch(symbols, scores, init_state, init_carry, reset_rows,
-               row_offset, pos_offset, out)
+               row_offset, pos_offset, out, dump)
         n2 = int(out.count.item())
         if n2 != n:
             raise RuntimeError(f"hit count changed on relaunch ({n} -> {n2})")

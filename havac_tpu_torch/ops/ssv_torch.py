@@ -32,6 +32,7 @@ def ssv_sweep_plain(
     reset_rows: Optional[torch.Tensor] = None,
     row_offset: int = 0,
     pos_offset: int = 0,
+    dump: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sweep (P rows x L positions); returns (keys, final_state, final_carry).
 
@@ -43,6 +44,10 @@ def ssv_sweep_plain(
     ``keys`` int64 (n,) hold every hit, sorted by (row, position);
     ``final_state`` int32 (L,) = S[P-1][*]; ``final_carry`` int32 (P+1,) with
     final_carry[0] = init_state[L-1] and final_carry[j+1] = S[j][L-1].
+
+    ``dump``, when given, is a (P, L) uint8 tensor that receives every
+    post-update state, row j = S[j][*] (all lie in [0, 255]): the plain
+    version of the kernel's row-dump variant.
     """
     L = symbols.shape[0]
     P = scores.shape[0]
@@ -63,6 +68,8 @@ def ssv_sweep_plain(
         s = shifted + table[j].index_select(0, sym)
         hit = s >= 256
         row = torch.where((s < 0) | hit, zero, s)
+        if dump is not None:
+            dump[j].copy_(row)
         carry[j + 1] = row[L - 1]
         cols = torch.nonzero(hit).flatten()
         if cols.numel():

@@ -1,4 +1,6 @@
-"""The CUDA sweep kernel against its plain PyTorch version, on the card.
+"""The CUDA sweep kernel (and its row-dump variant) against its plain
+PyTorch version, and the engine's CUDA paths against the CPU engine, on the
+card.
 
 Marked ``cuda``: without an NVIDIA GPU every test here skips (the decision
 is made inside the fixture, never at import). On the card:
@@ -13,6 +15,8 @@ from havac_tpu.testing.generator import generate_planted_fixture
 from havac_tpu_torch.engine import Havac
 from havac_tpu_torch.ops import ssv_cuda
 from havac_tpu_torch.ops.ssv_torch import ssv_sweep_plain
+from havac_tpu_torch.testing.percell import (dp_matrix_kernel, dp_matrix_rows,
+                                             dp_matrix_torch)
 
 pytestmark = pytest.mark.cuda
 
@@ -65,3 +69,85 @@ def test_cuda_engine_matches_cpu_engine(dev):
     assert runs[0].hits().as_tuples() == runs[1].hits().as_tuples()
     for x, y in zip(runs[0].raw_hits(), runs[1].raw_hits()):
         np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("card,reset", [(4, False), (4, True), (20, False),
+                                        (20, True)])
+def test_dump_matches_plain(dev, card, reset):
+    """The row-dump variant writes every cell (buffers prefilled with 0x00
+    and with 0xFF give the plain matrix) and leaves keys, count, state and
+    carry as an undumped launch has them; it counts in DUMP_LAUNCHES only."""
+    rng = np.random.default_rng(100 + card + reset)
+    L, P = 30_011, 203
+    arrays = (rng.integers(0, card, L).astype(np.uint8),
+              rng.integers(-40, 70, (P, card)).astype(np.int8),
+              rng.integers(0, 256, L).astype(np.int32),
+              rng.integers(0, 256, P + 1).astype(np.int32))
+    t = [torch.from_numpy(a).to(dev) for a in arrays]
+    rr = (torch.from_numpy((rng.random(P) < 0.1).astype(np.int32)).to(dev)
+          if reset else None)
+    want = torch.empty((P, L), dtype=torch.uint8, device=dev)
+    keys, state, carry = ssv_sweep_plain(*t, rr, 3, 9, dump=want)
+    undumped = ssv_cuda.ssv_sweep(*t, reset_rows=rr, row_offset=3,
+                                  pos_offset=9)
+    for fill in (0x00, 0xFF):
+        dump = torch.full((P, L), fill, dtype=torch.uint8, device=dev)
+        launches, dumps = ssv_cuda.LAUNCHES, ssv_cuda.DUMP_LAUNCHES
+        res = ssv_cuda.ssv_sweep(*t, reset_rows=rr, row_offset=3,
+                                 pos_offset=9, dump=dump)
+        torch.cuda.synchronize()
+        assert ssv_cuda.LAUNCHES == launches
+        assert ssv_cuda.DUMP_LAUNCHES == dumps + 1
+        assert torch.equal(dump, want)
+        assert res.count == undumped.count == keys.numel() > 0
+        assert torch.equal(torch.sort(res.keys).values, keys)
+        assert torch.equal(res.final_state, state)
+        assert torch.equal(res.final_carry, carry)
+        assert torch.equal(res.final_state, undumped.final_state)
+        assert torch.equal(res.final_carry, undumped.final_carry)
+
+
+def test_percell_functions_on_the_card(dev):
+    """dp_matrix_kernel (one dump launch, with a carry column and reset
+    rows) and dp_matrix_rows (one launch per row) against dp_matrix_torch,
+    all on the card."""
+    rng = np.random.default_rng(7)
+    L, P = 20_000, 96
+    sym = torch.from_numpy(rng.integers(0, 4, L).astype(np.uint8)).to(dev)
+    sc = torch.from_numpy(rng.integers(-40, 110, (P, 4)).astype(np.int8)
+                          ).to(dev)
+    icarry = torch.from_numpy(rng.integers(0, 256, P + 1).astype(np.int32)
+                              ).to(dev)
+    reset = torch.from_numpy((rng.random(P) < 0.1).astype(np.int32)).to(dev)
+    want = dp_matrix_torch(sym, sc, icarry, reset)
+    assert want.device.type == "cuda"
+    assert torch.equal(dp_matrix_kernel(sym, sc, icarry, reset), want)
+    launches = ssv_cuda.LAUNCHES
+    rows = dp_matrix_rows(sym, sc)
+    torch.cuda.synchronize()
+    assert ssv_cuda.LAUNCHES == launches + P
+    assert torch.equal(rows, dp_matrix_torch(sym, sc))
+
+
+def test_scan_files_cuda_matches_cpu(dev, tmp_path):
+    from havac_tpu.io.hmm import write_hmm
+
+    models, _ = generate_planted_fixture(seed=23, model_length=40,
+                                         sequence_length=10, num_models=3)
+    write_hmm(models, str(tmp_path / "m.hmm"))
+    paths = []
+    for i in range(3):
+        _, recs = generate_planted_fixture(
+            seed=23 + i, model_length=40, sequence_length=5000 + 1000 * i,
+            num_models=3)
+        paths.append(str(tmp_path / f"db{i}.fasta"))
+        with open(paths[-1], "w") as f:
+            f.write("".join(f">{n}\n{s}\n" for n, s in recs))
+    scans = []
+    for device in (dev, "cpu"):
+        e = Havac(p_value=0.05, device=device, chunk_symbols=3001,
+                  strand="both").load_phmm(str(tmp_path / "m.hmm"))
+        scans.append([(p, h.as_tuples_stranded())
+                      for p, h in e.scan_files(paths, prefetch=2)])
+    assert scans[0] == scans[1]
+    assert sum(len(h) for _, h in scans[0]) > 0

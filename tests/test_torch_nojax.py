@@ -1,5 +1,5 @@
-"""The port runs without JAX: a CPU search in a fresh interpreter leaves
-`jax` out of sys.modules."""
+"""The port runs without JAX: a CPU search, a multi-file scan and a per-cell
+dump in a fresh interpreter leave `jax` out of sys.modules."""
 
 import json
 import os
@@ -19,18 +19,36 @@ models, records = generate_planted_fixture(seed=7, model_length=40,
 fasta = "".join(f">{n}\n{s}\n" for n, s in records)
 engine = Havac(p_value=0.05, device="cpu", chunk_symbols=700)
 engine.load_phmm(models).load_sequence(fasta, is_text=True).run()
-print(json.dumps({"hits": len(engine.hits()),
+
+import os
+import numpy as np
+from havac_tpu_torch.testing.percell import dp_matrix_kernel
+
+paths = []
+for i in range(2):
+    paths.append(os.path.join(sys.argv[1], f"db{i}.fasta"))
+    with open(paths[-1], "w") as f:
+        f.write(fasta)
+scanned = [len(h) for _, h in engine.scan_files(paths)]
+rng = np.random.default_rng(0)
+matrix = dp_matrix_kernel(rng.integers(0, 4, 300).astype(np.uint8),
+                          rng.integers(-40, 110, (9, 4)).astype(np.int8))
+print(json.dumps({"hits": len(engine.hits()), "scanned": scanned,
+                  "cells": matrix.numel(),
                   "jax": sorted(m for m in sys.modules
                                 if m == "jax" or m.startswith("jax."))}))
 """
 
 
-def test_port_search_imports_no_jax():
+def test_port_search_imports_no_jax(tmp_path):
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
-    res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
+    res = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["hits"] > 0
+    assert out["scanned"] == [out["hits"]] * 2
+    assert out["cells"] == 9 * 300
     assert out["jax"] == []

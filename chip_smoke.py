@@ -6,7 +6,8 @@ Phases (each prints its own lines; any failure exits non-zero):
 
 1. device  — the card's name and ``nvidia-smi`` name/power limit; fails
              without CUDA.
-2. build   — compiles havac_tpu_torch/csrc/ssv_sweep.cu (nvcc, sm_90a).
+2. build   — compiles havac_tpu_torch/csrc/*.cu (ssv_sweep.cu and
+             roofline.cu; nvcc, sm_90a) into one library.
 3. kernel  — the CUDA sweep kernel against its plain PyTorch version on the
              card, exactly (sorted keys, count, final state and carry):
              card 4 and 20, with and without reset rows, non-zero boundary
@@ -35,6 +36,15 @@ Phases (each prints its own lines; any failure exits non-zero):
              subprocess answering two of the files, a missing path (an error
              line, the server stays up) and ``quit``; one ``benchmark``
              subcommand on one file.
+8. roofline — the op-mix roofline kernels of havac_tpu_torch/csrc/roofline.cu
+             (roofline_op_mix, roofline_add_chain, roofline_narrow_mix) at
+             WS = 64, K = 30: every copy of every one of the 12 variants
+             against its plain version on the card, exactly, at reps 1-3;
+             the plain versions' times; then the tool's own entry point
+             (``python -m havac_tpu_torch.tools.roofline``) times each
+             kernel differentially and fails a variant whose rate would need
+             more integer instructions than the card issues. Prints the
+             current/perrow GCUPS-equiv beside the main path's sweep GCUPS.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; the run fails if a kernel of the path did not launch. The
@@ -64,6 +74,7 @@ from havac_tpu_torch.testing.percell import (compare_matrices,
                                              dp_matrix_torch)
 from havac_tpu_torch.testing.workload import (CHR22_LENGTH, write_fasta,
                                               write_workload)
+from havac_tpu_torch.tools import roofline
 
 SEED = 7
 MODEL_POSITIONS = 10020  # tools/runtime_table.py's 10k point
@@ -77,6 +88,19 @@ PERCELL_POSITIONS = 262_144
 PERCELL_ROWS_BY_LAUNCH = 512
 SCAN_FILES = 4
 ROOT = os.path.dirname(os.path.abspath(__file__))
+ROOFLINE_SOURCE = "havac_tpu_torch/csrc/roofline.cu"
+ROOFLINE_REPLACES = {
+    "roofline_op_mix": "tools/roofline.py:293 (make_variant -> kernel :241)",
+    "roofline_add_chain": "tools/roofline.py:500 (make_variant -> kernel_add "
+                          ":485)",
+    "roofline_narrow_mix": "tools/roofline.py:569 (make_variant -> kernel8 "
+                           ":520)",
+}
+# The variant whose times stand for each kernel in the kernels line.
+ROOFLINE_SHOWN = {"roofline_op_mix": "current", "roofline_add_chain": "add8",
+                  "roofline_narrow_mix": "int8mix"}
+ROOFLINE_ROWS = 30
+ROOFLINE_LO, ROOFLINE_HI = 64, 4160
 
 
 def log(msg: str) -> None:
@@ -445,7 +469,64 @@ def run_paths(dev, smi, work, max_err) -> dict:
          "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
          "ms": ms, "plain_ms": plain_ms},
         {"name": "ssv_sweep_dump", "route": "cuda", "source": SOURCE,
-         "replaces": DUMP_REPLACES, **dump}]}
+         "replaces": DUMP_REPLACES, **dump}]}, st.gcups
+
+
+def phase_roofline(dev, smi, main_gcups) -> list:
+    ws, k = roofline.MAX_WS, ROOFLINE_ROWS
+    card = roofline.Card.query(dev)
+    err = dict.fromkeys(roofline.KERNELS, 0)
+    plain = {}
+    for name in roofline.VARIANTS:
+        x = roofline.make_inputs(name, ws, k, dev)
+        copies = card.sms * roofline.blocks_per_sm(name, ws, k)
+        for reps in (1, 2, 3):
+            got = roofline.op_mix(x, reps, copies)
+            torch.cuda.synchronize()
+            want = roofline.op_mix_plain(name, x, reps)
+            d = int((got.long() - want.long()).abs().max())
+            kernel = roofline.KERNEL_OF[name]
+            err[kernel] = max(err[kernel], d)
+            if d:
+                raise AssertionError(f"{name}: kernel differs from plain by "
+                                     f"{d} at reps={reps}")
+        plain[name] = roofline.time_differential(
+            lambda reps: roofline.op_mix_plain(name, x, reps), 1, 3, dev,
+            iters=2)[0]
+        log(f"[roofline] {name}: {copies} copies == plain exactly at reps "
+            f"1-3; plain {plain[name] * 1e3:.4f} ms/rep")
+
+    path = os.path.join(ROOT, "build", "roofline_smoke.json")
+    roofline.ROOFLINE_LAUNCHES.update(dict.fromkeys(roofline.KERNELS, 0))
+    rc = roofline.main(["--ws", str(ws), "--rows", str(k), "--lo",
+                        str(ROOFLINE_LO), "--hi", str(ROOFLINE_HI),
+                        "--json", path])
+    launches = dict(roofline.ROOFLINE_LAUNCHES)
+    with open(path) as f:
+        results = json.load(f)["results"]
+    os.remove(path)
+    if rc != 0 or sorted(results) != sorted(roofline.VARIANTS):
+        raise AssertionError(f"roofline tool rc={rc}: {sorted(results)}")
+    for kernel, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{kernel} was not launched by the tool")
+    for name, r in results.items():
+        log(f"[roofline] {name}: kernel {r['sec_per_rep'] * 1e3:.6f} ms/rep "
+            f"({r['copies']} copies, {r['gcups_equiv_card']:.2f} "
+            f"GCUPS-equiv on the card, issue share {r['issue_share']:.3f}, "
+            f"INT32 share {r['int32_share']:.3f}), plain "
+            f"{plain[name] * 1e3:.4f} ms/rep (1 instance); {smi}")
+    log(f"[roofline] LAUNCHES={json.dumps(launches)}")
+    for name in ("current", "perrow"):
+        g = results[name]["gcups_equiv_card"]
+        log(f"[roofline] main-path sweep {main_gcups:.2f} GCUPS = "
+            f"{main_gcups / g:.4f} of {name}'s {g:.2f} GCUPS-equiv")
+    return [{"name": kernel, "route": "cuda", "source": ROOFLINE_SOURCE,
+             "replaces": ROOFLINE_REPLACES[kernel],
+             "launches": launches[kernel], "max_abs_err": err[kernel],
+             "ms": results[ROOFLINE_SHOWN[kernel]]["sec_per_rep"] * 1e3,
+             "plain_ms": plain[ROOFLINE_SHOWN[kernel]] * 1e3}
+            for kernel in roofline.KERNELS]
 
 
 def main() -> int:
@@ -475,9 +556,10 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
-        record = run_paths(dev, smi, work, max_err)
+        record, main_gcups = run_paths(dev, smi, work, max_err)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    record["kernels"] += phase_roofline(dev, smi, main_gcups)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,0 +1,417 @@
+// Op-mix roofline probes for NVIDIA Hopper (sm_90a): what the SM's integer
+// pipes sustain on the exact per-row op sequence of the SWAR SSV update.
+//
+// Three kernels, the counterparts of the Pallas TPU kernels of
+// tools/roofline.py `make_variant`:
+//
+//   op_mix_kernel<V>      replaces `kernel` (tools/roofline.py:241, launched
+//                         at :293): the eight int32 variants (current, perrow,
+//                         leanhit, nomatch, noroll, addonly, mulcost,
+//                         andmatch) over a (WS, 128) word buffer, K rows per
+//                         rep, a flush every 10 rows, out = state+bits+acc.
+//   add_chain_kernel<B>   replaces `kernel_add` (:485, launched at :500):
+//                         the (s + i) ^ s chain on int8 (B = 1, add8) or
+//                         int16 (B = 2, add16) elements.
+//   narrow_mix_kernel<B>  replaces `kernel8` (:520, launched at :569): the
+//                         full row update in int8 / int16 (4:1 select match,
+//                         wrapping add, carry-out logic), a flush every 8
+//                         rows.
+//
+// Each block computes one instance, equal word for word to the TPU kernel's
+// output on the same inputs; `copies` blocks compute `copies` identical
+// instances so that the grid fills the card. `reps` is a runtime argument,
+// so one build serves the differential timing (t(hi) - t(lo)) / (hi - lo).
+//
+// What bounds them on the H100: integer issue. Per SM and clock the four
+// schedulers issue 4 warp instructions (128 lanes); the INT32 pipe takes 64
+// lanes (logic ops, shifts, 3-input adds), IMAD runs on the FMA pipe. There
+// is no device-memory traffic inside the loop: the planes and the state live
+// in registers, the scores (16 x K x 4 words) in shared memory. The int32
+// variants also pay for the roll: word p of row k needs word p-1 of row
+// k-1, a flat one-word shift of the whole (WS x 128) buffer every row.
+//
+// Design: a thread owns kWords = 16 consecutive words, so the roll is a
+// register rename inside the thread (words are updated from the last to the
+// first), one __shfl_up_sync across the warp, and one shared-memory word
+// per warp across warps, double-buffered behind one __syncthreads a row.
+// Thread 0 builds the seam stitch (state[N-1] << 10) | cin from the last
+// warp's word; `perrow` also keeps the TPU kernel's scalar side: the last
+// thread writes state[N-1] >> 20 into a two-slot carry queue in shared
+// memory (seeded as the TPU kernel finds it: 7 at k = 0, INT32_MIN
+// elsewhere) that thread 0 reads as cin in the next rep. WS is capped at 64
+// (512 threads, six 16-word arrays in registers); the TPU tool's WS = 336
+// buffer (VMEM-sized) would not fit one SM and is not shrunk silently: the
+// wrapper refuses it. The narrow kernels pack 4 (int8) or 2 (int16) lanes
+// per 32-bit word and use SWAR arithmetic: a wrapping per-lane add
+// ((a & L) + (b & L)) ^ ((a ^ b) & H), lane-sign masks by prmt's sign
+// replication, and per-lane doubling by (x << 1) & ~lsb.
+//
+// Anti-hoisting (the TPU tool's lesson, which nvcc shares): scores are read
+// at strip r % 16 every row, the hit bitmap folds into `acc` at every flush,
+// the add chains are nonlinear ((s + i) ^ s), and `reps` and K are read at
+// run time. Signed wraparound is done in unsigned arithmetic.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWords = 16;         // 32-bit words per thread
+constexpr int kMaxThreads = 512;   // WS <= 64: 64 * 128 / kWords
+constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kNS = 16;            // score strips; rep r uses strip r % 16
+constexpr int kMaxRows = 128;      // K
+constexpr int32_t kFM = 0x00100401;  // bit 0 of each 10-bit field
+constexpr int kFlush = 10;         // rows between flushes, int32 variants
+constexpr int kNarrowFlush = 8;    // rows between flushes, narrow mix
+
+enum Variant {
+  kCurrent, kPerrow, kLeanhit, kNomatch, kNoroll, kAddonly, kMulcost,
+  kAndmatch, kNumVariants
+};
+
+__device__ __forceinline__ int32_t add(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a + (uint32_t)b);
+}
+__device__ __forceinline__ int32_t sub(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a - (uint32_t)b);
+}
+__device__ __forceinline__ int32_t mul(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a * (uint32_t)b);
+}
+__device__ __forceinline__ int32_t shl(int32_t a, int s) {
+  return (int32_t)((uint32_t)a << s);
+}
+
+__device__ __forceinline__ void load16(const int32_t* p, int32_t (&v)[kWords]) {
+  const int4* q = reinterpret_cast<const int4*>(p);
+#pragma unroll
+  for (int j = 0; j < kWords / 4; ++j) {
+    const int4 x = q[j];
+    v[4 * j] = x.x; v[4 * j + 1] = x.y; v[4 * j + 2] = x.z; v[4 * j + 3] = x.w;
+  }
+}
+
+__device__ __forceinline__ void store16(int32_t* p, const int32_t (&v)[kWords]) {
+  int4* q = reinterpret_cast<int4*>(p);
+#pragma unroll
+  for (int j = 0; j < kWords / 4; ++j)
+    q[j] = make_int4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+}
+
+__host__ __device__ constexpr bool rolls(int v) {
+  return v != kNoroll && v != kAddonly && v != kMulcost;
+}
+
+// One instance per block: blockDim.x = WS * 8 threads, kWords words each.
+template <int V>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+op_mix_kernel(const int32_t* __restrict__ scores,
+              const int32_t* __restrict__ i1g, const int32_t* __restrict__ i2g,
+              const int32_t* __restrict__ i3g, int K, int reps,
+              int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) int32_t smem[];
+  int32_t* s_scores = smem;                    // kNS * K * 4
+  int32_t* s_edge = s_scores + kNS * K * 4;    // 2 * kMaxWarps
+  int32_t* s_queue = s_edge + 2 * kMaxWarps;   // 2 * (K + 1), perrow
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+  for (int x = tid; x < kNS * K * 4; x += nthreads) s_scores[x] = scores[x];
+  for (int x = tid; x < 2 * (K + 1); x += nthreads)
+    s_queue[x] = (x == 0 || x == K + 1) ? 7 : INT32_MIN;
+
+  const int base = tid * kWords;
+  int32_t st[kWords], bits[kWords], acc[kWords];
+  int32_t a1[kWords], a2[kWords], a3[kWords];
+  load16(i1g + base, a1);
+  load16(i2g + base, a2);
+  load16(i3g + base, a3);
+  int32_t inz8[kWords];  // andmatch: 256 per nonzero field (row-invariant)
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    st[j] = a1[j];
+    bits[j] = 0;
+    acc[j] = 0;
+    inz8[j] = (a1[j] | a2[j] | a3[j]) & (kFM * 256);
+  }
+  __syncthreads();
+
+  int buf = 0;
+  for (int r = 0; r < reps; ++r) {
+    const int32_t* srow = s_scores + (r % kNS) * K * 4;
+    const int rslot = r & 1;
+    int f = 0;
+    for (int k = 0; k < K; ++k) {
+      const int4 m = *reinterpret_cast<const int4*>(srow + 4 * k);
+      // Per-row scalars of the match construction.
+      const int32_t c = mul(m.x, kFM);
+      int32_t d1 = sub(m.y, m.x), d2 = sub(m.z, m.x), d3 = sub(m.w, m.x);
+      if (V == kAndmatch) {
+        d1 = mul(add(d1, 256) & 0x3FF, kFM);
+        d2 = mul(add(d2, 256) & 0x3FF, kFM);
+        d3 = mul(add(d3, 256) & 0x3FF, kFM);
+      }
+      int32_t left = 0;  // the word left of this thread's first, last row
+      if constexpr (rolls(V)) {
+        int32_t* edge = s_edge + buf * kMaxWarps;
+        if (lane == 31) edge[warp] = st[kWords - 1];
+        __syncthreads();
+        left = __shfl_up_sync(0xffffffffu, st[kWords - 1], 1);
+        if (lane == 0) {
+          if (warp > 0) {
+            left = edge[warp - 1];
+          } else {
+            const int32_t cin =
+                V == kPerrow ? s_queue[rslot * (K + 1) + k] : 7;
+            left = shl(edge[nwarps - 1], 10) | cin;  // the seam stitch
+          }
+        }
+        buf ^= 1;
+      }
+#pragma unroll
+      for (int j = kWords - 1; j >= 0; --j) {
+        if (V == kAddonly) {
+          st[j] = add(st[j], a1[j]) ^ st[j];
+          continue;
+        }
+        if (V == kMulcost) {
+          st[j] = mul(st[j], a1[j]) ^ st[j];
+          continue;
+        }
+        const int32_t shifted = !rolls(V) ? st[j] : (j > 0 ? st[j - 1] : left);
+        int32_t match;
+        if (V == kNomatch) {
+          match = c;
+        } else if (V == kAndmatch) {
+          match = sub(add(add(c, a1[j] & d1), add(a2[j] & d2, a3[j] & d3)),
+                      inz8[j]);
+        } else {
+          match = add(add(c, mul(a1[j], d1)),
+                      add(mul(a2[j], d2), mul(a3[j], d3)));
+        }
+        const int32_t w = add(shifted, match);
+        if (V == kLeanhit) {
+          const int32_t b9 = w & (kFM << 9);
+          bits[j] = (bits[j] >> 1) | b9;  // hit row r lands at field bit r
+          const int32_t keep = (w & (kFM << 8)) & ~(b9 >> 1);
+          st[j] = w & sub(keep, keep >> 8);
+        } else {
+          const int32_t t9 = w >> 9;
+          bits[j] = shl(bits[j], 1) | (t9 & kFM);
+          const int32_t kmask = (w >> 8) & ~t9 & kFM;
+          st[j] = w & mul(kmask, 255);
+        }
+      }
+      if (V == kPerrow && tid == nthreads - 1)  // the per-row scalar side
+        s_queue[(rslot ^ 1) * (K + 1) + k + 1] = st[kWords - 1] >> 20;
+      if (++f == kFlush) {
+        f = 0;
+#pragma unroll
+        for (int j = 0; j < kWords; ++j) {
+          acc[j] ^= bits[j];  // keep the hit ops live
+          bits[j] = 0;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) st[j] = add(add(st[j], bits[j]), acc[j]);
+  store16(out + (long long)blockIdx.x * nthreads * kWords + base, st);
+}
+
+// Packed lanes of B bytes in a 32-bit word: H = the lanes' sign bits,
+// LSB = their low bits, SIGNS = the prmt selector that replicates each
+// lane's sign over the lane, LANE = one lane's value mask.
+template <int B> struct Lanes;
+template <> struct Lanes<1> {
+  static constexpr uint32_t H = 0x80808080u, LSB = 0x01010101u,
+                            SIGNS = 0xBA98u, LANE = 0xFFu;
+};
+template <> struct Lanes<2> {
+  static constexpr uint32_t H = 0x80008000u, LSB = 0x00010001u,
+                            SIGNS = 0xBB99u, LANE = 0xFFFFu;
+};
+
+template <int B>
+__device__ __forceinline__ uint32_t lane_add(uint32_t a, uint32_t b) {
+  constexpr uint32_t H = Lanes<B>::H, L = ~Lanes<B>::H;
+  return ((a & L) + (b & L)) ^ ((a ^ b) & H);  // per lane, wrapping
+}
+
+template <int B>
+__device__ __forceinline__ uint32_t sign_mask(uint32_t x) {
+  uint32_t r;  // all ones in every lane whose sign bit is set
+  asm("prmt.b32 %0, %1, 0, %2;" : "=r"(r) : "r"(x), "r"(Lanes<B>::SIGNS));
+  return r;
+}
+
+template <int B>
+__device__ __forceinline__ uint32_t nonzero_mask(uint32_t x) {
+  constexpr uint32_t H = Lanes<B>::H, L = ~Lanes<B>::H;
+  return sign_mask<B>((((x & L) + L) | x) & H);
+}
+
+template <int B>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+add_chain_kernel(const int32_t* __restrict__ i1g, int K, int reps,
+                 int32_t* __restrict__ out) {
+  const int base = threadIdx.x * kWords;
+  int32_t s[kWords], a[kWords];
+  load16(i1g + base, a);
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) s[j] = a[j];
+  for (int r = 0; r < reps; ++r)
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int j = 0; j < kWords; ++j)
+        s[j] = (int32_t)(lane_add<B>((uint32_t)s[j], (uint32_t)a[j]) ^
+                         (uint32_t)s[j]);
+  store16(out + (long long)blockIdx.x * blockDim.x * kWords + base, s);
+}
+
+template <int B>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+narrow_mix_kernel(const int32_t* __restrict__ scores,
+                  const int32_t* __restrict__ i1g,
+                  const int32_t* __restrict__ i2g,
+                  const int32_t* __restrict__ i3g, int K, int reps,
+                  int32_t* __restrict__ out) {
+  using Ln = Lanes<B>;
+  extern __shared__ __align__(16) int32_t smem[];
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  for (int x = tid; x < kNS * K * 4; x += nthreads) smem[x] = scores[x];
+  const int base = tid * kWords;
+  int32_t in[kWords];
+  uint32_t st[kWords], bits[kWords], acc[kWords];
+  uint32_t M1[kWords], M2[kWords], M3[kWords];  // lane masks of plane != 0
+  load16(i1g + base, in);
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) M1[j] = nonzero_mask<B>((uint32_t)in[j]);
+  load16(i2g + base, in);
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) M2[j] = nonzero_mask<B>((uint32_t)in[j]);
+  load16(i3g + base, in);
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    M3[j] = nonzero_mask<B>((uint32_t)in[j]);
+    st[j] = M1[j] & Ln::LSB;  // where(i1, 1, 0)
+    bits[j] = 0;
+    acc[j] = 0;
+  }
+  __syncthreads();
+
+  for (int r = 0; r < reps; ++r) {
+    const int32_t* srow = smem + (r % kNS) * K * 4;
+    int f = 0;
+    for (int k = 0; k < K; ++k) {
+      const int4 m = *reinterpret_cast<const int4*>(srow + 4 * k);
+      // astype(int8/int16) truncates; broadcast the value to every lane.
+      const uint32_t m0 = ((uint32_t)m.x & Ln::LANE) * Ln::LSB;
+      const uint32_t m1 = ((uint32_t)m.y & Ln::LANE) * Ln::LSB;
+      const uint32_t m2 = ((uint32_t)m.z & Ln::LANE) * Ln::LSB;
+      const uint32_t m3 = ((uint32_t)m.w & Ln::LANE) * Ln::LSB;
+#pragma unroll
+      for (int j = 0; j < kWords; ++j) {
+        uint32_t match = (M1[j] & m1) | (~M1[j] & m0);  // 4:1 select tree
+        match = (M2[j] & m2) | (~M2[j] & match);
+        match = (M3[j] & m3) | (~M3[j] & match);
+        const uint32_t sumw = lane_add<B>(st[j], match);
+        const uint32_t cvec = (st[j] & match) | ((st[j] | match) & ~sumw);
+        // reset = sign(cvec) ^ sign(match); hit = sign(cvec) & !sign(match)
+        const uint32_t reset = sign_mask<B>(cvec ^ match);
+        const uint32_t hit = (cvec & ~match & Ln::H) >> (8 * B - 1);
+        bits[j] = ((bits[j] << 1) & ~Ln::LSB) | hit;  // bits + bits + hit
+        st[j] = sumw & ~reset;
+      }
+      if (++f == kNarrowFlush) {
+        f = 0;
+#pragma unroll
+        for (int j = 0; j < kWords; ++j) {
+          acc[j] ^= bits[j];
+          bits[j] = 0;
+        }
+      }
+    }
+  }
+  int32_t res[kWords];
+#pragma unroll
+  for (int j = 0; j < kWords; ++j)
+    res[j] = (int32_t)lane_add<B>(lane_add<B>(st[j], bits[j]), acc[j]);
+  store16(out + (long long)blockIdx.x * nthreads * kWords + base, res);
+}
+
+using OpMixFn = void (*)(const int32_t*, const int32_t*, const int32_t*,
+                         const int32_t*, int, int, int32_t*);
+using AddFn = void (*)(const int32_t*, int, int, int32_t*);
+
+const OpMixFn kOpMix[kNumVariants] = {
+    op_mix_kernel<kCurrent>, op_mix_kernel<kPerrow>, op_mix_kernel<kLeanhit>,
+    op_mix_kernel<kNomatch>, op_mix_kernel<kNoroll>, op_mix_kernel<kAddonly>,
+    op_mix_kernel<kMulcost>, op_mix_kernel<kAndmatch>};
+const AddFn kAdd[2] = {add_chain_kernel<1>, add_chain_kernel<2>};
+const OpMixFn kNarrow[2] = {narrow_mix_kernel<1>, narrow_mix_kernel<2>};
+
+bool bad_shape(int ws, int k, int reps, int copies) {
+  return ws < 4 || ws > kMaxThreads * kWords / 128 || ws % 4 != 0 || k < 1 ||
+         k > kMaxRows || reps < 0 || copies < 1;
+}
+
+size_t op_mix_smem(int k) {
+  return sizeof(int32_t) * (kNS * k * 4 + 2 * kMaxWarps + 2 * (k + 1));
+}
+size_t narrow_smem(int k) { return sizeof(int32_t) * kNS * k * 4; }
+
+}  // namespace
+
+// Each returns 0 or a cudaError_t; launches on `stream`, does not
+// synchronise. The block is WS * 8 threads; `copies` blocks.
+extern "C" int hv_roofline_op_mix(int variant, const int32_t* scores,
+                                  const int32_t* i1, const int32_t* i2,
+                                  const int32_t* i3, int ws, int k, int reps,
+                                  int copies, int32_t* out,
+                                  cudaStream_t stream) {
+  if (variant < 0 || variant >= kNumVariants || bad_shape(ws, k, reps, copies))
+    return cudaErrorInvalidValue;
+  kOpMix[variant]<<<copies, ws * 128 / kWords, op_mix_smem(k), stream>>>(
+      scores, i1, i2, i3, k, reps, out);
+  return cudaGetLastError();
+}
+
+extern "C" int hv_roofline_add_chain(int bytes, const int32_t* i1, int ws,
+                                     int k, int reps, int copies, int32_t* out,
+                                     cudaStream_t stream) {
+  if ((bytes != 1 && bytes != 2) || bad_shape(ws, k, reps, copies))
+    return cudaErrorInvalidValue;
+  kAdd[bytes - 1]<<<copies, ws * 128 / kWords, 0, stream>>>(i1, k, reps, out);
+  return cudaGetLastError();
+}
+
+extern "C" int hv_roofline_narrow_mix(int bytes, const int32_t* scores,
+                                      const int32_t* i1, const int32_t* i2,
+                                      const int32_t* i3, int ws, int k,
+                                      int reps, int copies, int32_t* out,
+                                      cudaStream_t stream) {
+  if ((bytes != 1 && bytes != 2) || bad_shape(ws, k, reps, copies))
+    return cudaErrorInvalidValue;
+  kNarrow[bytes - 1]<<<copies, ws * 128 / kWords, narrow_smem(k), stream>>>(
+      scores, i1, i2, i3, k, reps, out);
+  return cudaGetLastError();
+}
+
+// Resident blocks per SM for one kernel (0 op_mix with `which` the variant,
+// 1 add_chain / 2 narrow_mix with `which` the lane bytes) at (ws, k).
+extern "C" int hv_roofline_blocks_per_sm(int kernel, int which, int ws, int k,
+                                         int* blocks) {
+  if (bad_shape(ws, k, 0, 1)) return cudaErrorInvalidValue;
+  const int threads = ws * 128 / kWords;
+  if (kernel == 0 && which >= 0 && which < kNumVariants)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, kOpMix[which], threads, op_mix_smem(k));
+  if ((which == 1 || which == 2) && kernel == 1)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, kAdd[which - 1], threads, 0);
+  if ((which == 1 || which == 2) && kernel == 2)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, kNarrow[which - 1], threads, narrow_smem(k));
+  return cudaErrorInvalidValue;
+}

@@ -1,9 +1,12 @@
 """The hand-written Hopper SSV sweep kernel: build, binding and checked wrapper.
 
-`havac_tpu_torch/csrc/ssv_sweep.cu` is compiled with ``nvcc`` for sm_90a into
-a shared library with a plain C interface, at first use, under
+Every ``havac_tpu_torch/csrc/*.cu`` (the sweep, ``ssv_sweep.cu``, and the
+roofline probes, ``roofline.cu``, whose wrapper is
+:mod:`havac_tpu_torch.tools.roofline`) is compiled with ``nvcc`` for sm_90a
+into one shared library with a plain C interface, at first use, under
 ``build/havac_tpu_torch/`` beside the package (keyed by a hash of the
-sources, so an edited ``.cu`` rebuilds), and bound with ``ctypes``.
+sources, so an edited ``.cu`` rebuilds), and bound with ``ctypes``
+(:func:`load_library`).
 
 :func:`launch` enqueues one sweep on the current CUDA stream without
 synchronising; :func:`ssv_sweep` is the synchronous form that reads the
@@ -94,18 +97,28 @@ def build() -> str:
     return path
 
 
-def _load() -> ctypes.CDLL:
+def load_library() -> ctypes.CDLL:
+    """The built library of every ``csrc/*.cu``, its C entry points typed
+    (the sweep here, the roofline probes of ``tools/roofline.py``)."""
     global _lib
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            p, i64, u64 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong
-            lib.hv_ssv_sweep.restype = ctypes.c_int
-            lib.hv_ssv_sweep.argtypes = [p, i64, p, ctypes.c_int, ctypes.c_int,
-                                         p, p, p, i64, i64, p, p, p, u64, p, p,
-                                         p]
-            lib.hv_error_string.restype = ctypes.c_char_p
-            lib.hv_error_string.argtypes = [ctypes.c_int]
+            p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            u64 = ctypes.c_ulonglong
+            for fn, restype, args in (
+                    ("hv_ssv_sweep", i, [p, i64, p, i, i, p, p, p, i64, i64,
+                                         p, p, p, u64, p, p, p]),
+                    ("hv_error_string", ctypes.c_char_p, [i]),
+                    ("hv_roofline_op_mix", i, [i, p, p, p, p, i, i, i, i, p,
+                                               p]),
+                    ("hv_roofline_add_chain", i, [i, p, i, i, i, i, p, p]),
+                    ("hv_roofline_narrow_mix", i, [i, p, p, p, p, i, i, i, i,
+                                                   p, p]),
+                    ("hv_roofline_blocks_per_sm", i,
+                     [i, i, i, i, ctypes.POINTER(i)])):
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = args
             _lib = lib
         return _lib
 
@@ -199,7 +212,7 @@ def launch(symbols: torch.Tensor, scores: torch.Tensor,
         return
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    lib = _load()
+    lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.hv_ssv_sweep(

@@ -1,6 +1,6 @@
-"""The CUDA sweep kernel (and its row-dump variant) against its plain
-PyTorch version, and the engine's CUDA paths against the CPU engine, on the
-card.
+"""The CUDA sweep kernel (and its row-dump variant) and the roofline
+kernels against their plain PyTorch versions, and the engine's CUDA paths
+against the CPU engine, on the card.
 
 Marked ``cuda``: without an NVIDIA GPU every test here skips (the decision
 is made inside the fixture, never at import). On the card:
@@ -17,6 +17,7 @@ from havac_tpu_torch.ops import ssv_cuda
 from havac_tpu_torch.ops.ssv_torch import ssv_sweep_plain
 from havac_tpu_torch.testing.percell import (dp_matrix_kernel, dp_matrix_rows,
                                              dp_matrix_torch)
+from havac_tpu_torch.tools import roofline
 
 pytestmark = pytest.mark.cuda
 
@@ -151,3 +152,29 @@ def test_scan_files_cuda_matches_cpu(dev, tmp_path):
                       for p, h in e.scan_files(paths, prefetch=2)])
     assert scans[0] == scans[1]
     assert sum(len(h) for _, h in scans[0]) > 0
+
+
+@pytest.mark.parametrize("name", roofline.VARIANTS)
+@pytest.mark.parametrize("ws", [8, roofline.MAX_WS])
+def test_roofline_kernels_match_plain(dev, name, ws):
+    """Every copy of roofline_op_mix / add_chain / narrow_mix equals the
+    plain version exactly (zero tolerance), at reps 0-3 and K = 30 and 7."""
+    kernel = roofline.KERNEL_OF[name]
+    for k in (30, 7):
+        x = roofline.make_inputs(name, ws, k, dev)
+        for reps in range(4):
+            before = roofline.ROOFLINE_LAUNCHES[kernel]
+            got = roofline.op_mix(x, reps, copies=5)
+            torch.cuda.synchronize()
+            assert roofline.ROOFLINE_LAUNCHES[kernel] == before + 1
+            assert got.shape == (5, *roofline.out_shape(name, ws))
+            want = roofline.op_mix_plain(name, x, reps)
+            for c in range(5):
+                assert torch.equal(got[c], want), (name, ws, k, reps, c)
+
+
+def test_roofline_kernel_refuses_what_it_cannot_hold(dev):
+    x = roofline.make_inputs("current", 96, 30, dev)
+    with pytest.raises(ValueError, match="--ws 96"):
+        roofline.op_mix(x, 1)
+    assert roofline.blocks_per_sm("current", roofline.MAX_WS, 30) >= 1

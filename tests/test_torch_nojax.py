@@ -1,5 +1,6 @@
-"""The port runs without JAX: a CPU search, a multi-file scan and a per-cell
-dump in a fresh interpreter leave `jax` out of sys.modules."""
+"""The port runs without JAX: a CPU search, a multi-file scan, a per-cell
+dump and the op-mix roofline in a fresh interpreter leave `jax` out of
+sys.modules."""
 
 import json
 import os
@@ -33,8 +34,11 @@ scanned = [len(h) for _, h in engine.scan_files(paths)]
 rng = np.random.default_rng(0)
 matrix = dp_matrix_kernel(rng.integers(0, 4, 300).astype(np.uint8),
                           rng.integers(-40, 110, (9, 4)).astype(np.int8))
+from havac_tpu_torch.tools import roofline
+
+mix = roofline.op_mix(roofline.make_inputs("perrow", 4, 10), 2, copies=2)
 print(json.dumps({"hits": len(engine.hits()), "scanned": scanned,
-                  "cells": matrix.numel(),
+                  "cells": matrix.numel(), "roofline": list(mix.shape),
                   "jax": sorted(m for m in sys.modules
                                 if m == "jax" or m.startswith("jax."))}))
 """
@@ -51,4 +55,5 @@ def test_port_search_imports_no_jax(tmp_path):
     assert out["hits"] > 0
     assert out["scanned"] == [out["hits"]] * 2
     assert out["cells"] == 9 * 300
+    assert out["roofline"] == [2, 4, 128]
     assert out["jax"] == []

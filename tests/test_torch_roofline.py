@@ -1,0 +1,156 @@
+"""The port's op-mix roofline (`havac_tpu_torch/tools/roofline.py`) against
+the JAX tool `tools/roofline.py`.
+
+For each of the 12 ported variants, the plain PyTorch version on the inputs
+`make_inputs` builds equals the JAX tool's Pallas kernel, run in interpret
+mode at WS = 8, K = 30, word for word and in dtype and shape: the tolerance
+is zero. The CUDA kernels are held to the same plain versions on the card
+(`tests/test_torch_cuda.py`, `chip_smoke.py`).
+"""
+
+import functools
+import importlib.util
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from havac_tpu_torch.tools import roofline as R
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WS, K = 8, 30
+
+
+@functools.lru_cache(maxsize=None)
+def jax_tool():
+    spec = importlib.util.spec_from_file_location(
+        "jax_roofline_tool", os.path.join(ROOT, "tools", "roofline.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@functools.lru_cache(maxsize=None)
+def jax_runner(name, ws, k):
+    return jax_tool().make_variant(name, ws, k, interpret=True)
+
+
+def jax_out(name, reps, ws=WS, k=K):
+    run, _, _ = jax_runner(name, ws, k)
+    return np.asarray(run(jnp.asarray([reps], jnp.int32)))
+
+
+CASES = [(n, r) for n in R.VARIANTS for r in (1, 3)] + [("perrow", 2)]
+
+
+@pytest.mark.parametrize("name,reps", CASES)
+def test_plain_equals_jax_tool(name, reps):
+    want = jax_out(name, reps)
+    got = R.op_mix_plain(name, R.make_inputs(name, WS, K), reps).numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert tuple(got.shape) == R.out_shape(name, WS)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_counts_and_layouts_match_the_jax_tool():
+    for name in R.VARIANTS:
+        _, cells, layout = jax_runner(name, WS, K)
+        assert R.cells_per_rep(name, WS, K) == cells
+        assert R.layout(name) == layout
+
+
+def test_stitch_is_a_flat_roll_with_the_seam_word():
+    """The two pltpu.rolls + selects = a one-word roll of the row-major
+    buffer; word 0 gets (state[-1, -1] << 10) | cin, with int32 wrap."""
+    state = torch.arange(3 * 128, dtype=torch.int32).reshape(3, 128) * 977
+    state[-1, -1] = 0x7FFFFFFF
+    got = R.shift_stitch(state, 7).reshape(-1)
+    flat = state.reshape(-1)
+    assert torch.equal(got[1:], flat[:-1])
+    assert int(got[0]) == ((0x7FFFFFFF << 10) & 0xFFFFFFFF) - (1 << 32) | 7
+
+
+def test_perrow_queue_starts_at_int32_min():
+    """The TPU kernel's unwritten carry-queue scratch reads INT32_MIN in
+    interpret mode; only q[., 0] is seeded with 7."""
+    q = R.initial_queue(4)
+    assert q.dtype == torch.int32 and q.shape == (2, 5)
+    assert q[:, 0].tolist() == [7, 7]
+    assert (q[:, 1:] == R.INT32_MIN).all()
+    # Rep 0 reads INT32_MIN at rows 1..K-1 (bit 31 alone, which the update
+    # masks drop); from rep 1 on the queue carries the tails, and perrow
+    # leaves current.
+    per = R.op_mix_plain("perrow", R.make_inputs("perrow", WS, K), 1)
+    np.testing.assert_array_equal(per.numpy(), jax_out("perrow", 1))
+    assert not torch.equal(
+        R.op_mix_plain("perrow", R.make_inputs("perrow", WS, K), 2),
+        R.op_mix_plain("current", R.make_inputs("current", WS, K), 2))
+    # At K = 1 only the seeded 7 is ever read: perrow == current.
+    assert torch.equal(
+        R.op_mix_plain("perrow", R.make_inputs("perrow", WS, 1), 3),
+        R.op_mix_plain("current", R.make_inputs("current", WS, 1), 3))
+
+
+@pytest.mark.parametrize("name", R.UNPORTED)
+def test_unported_variants_raise(name):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        R.make_inputs(name, WS, K)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        R.op_mix_plain(name, R.make_inputs("current", WS, K), 1)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        R.main(["--device", "cpu", "--ws", "8", "--variants", name])
+
+
+def test_wrapper_takes_the_plain_version_on_cpu():
+    before = dict(R.ROOFLINE_LAUNCHES)
+    for name in ("perrow", "add16", "int8mix"):
+        x = R.make_inputs(name, WS, 12)
+        out = R.op_mix(x, 2, copies=3)
+        assert out.shape == (3, *R.out_shape(name, WS))
+        for c in range(3):
+            assert torch.equal(out[c], R.op_mix_plain(name, x, 2))
+    assert R.ROOFLINE_LAUNCHES == before  # no kernel launched
+
+
+def test_wrapper_checks_inputs_and_kernel_shapes():
+    x = R.make_inputs("current", WS, K)
+    bad = R.OpMixInputs("current", WS, K,
+                        tuple(p.to(torch.int16) for p in x.planes), x.scores)
+    with pytest.raises(ValueError, match="planes"):
+        R.op_mix(bad, 1)
+    with pytest.raises(ValueError, match="scores"):
+        R.op_mix(R.OpMixInputs("current", WS, K, x.planes, x.scores[:, :3]),
+                 1)
+    with pytest.raises(ValueError, match="reps"):
+        R.op_mix(x, -1)
+    R.check_kernel_shape(R.MAX_WS, K)
+    for ws, k in ((336, K), (6, K), (0, K), (8, 0), (8, R.MAX_ROWS + 1)):
+        with pytest.raises(ValueError):
+            R.check_kernel_shape(ws, k)
+
+
+def test_cli_on_cpu(tmp_path):
+    out = tmp_path / "roofline.json"
+    names = ["current", "add8", "int16mix"]
+    assert R.main(["--device", "cpu", "--ws", "8", "--rows", "10", "--lo",
+                   "0", "--hi", "8", "--iters", "2", "--variants", *names,
+                   "--json", str(out)]) == 0
+    report = json.loads(out.read_text())
+    assert report["backend"] == "cpu" and report["ws"] == 8
+    assert list(report["results"]) == names
+    for name, r in report["results"].items():
+        assert r["sec_per_rep"] > 0 and r["t_hi"] > r["t_lo"]
+        assert r["layout"] == R.layout(name) and r["copies"] == 1
+        assert r["gcups_equiv"] == pytest.approx(
+            R.cells_per_rep(name, 8, 10) / r["sec_per_rep"] / 1e9)
+        assert r["gcups_equiv_card"] == pytest.approx(r["gcups_equiv"])
+
+
+def test_cli_cuda_without_a_card_fails():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        R.main(["--device", "cuda", "--variants", "current"])

@@ -37,18 +37,28 @@ Phases (each prints its own lines; any failure exits non-zero):
              line, the server stays up) and ``quit``; one ``benchmark``
              subcommand on one file.
 8. roofline — the op-mix roofline kernels of havac_tpu_torch/csrc/roofline.cu
-             (roofline_op_mix, roofline_add_chain, roofline_narrow_mix) at
-             WS = 64, K = 30: every copy of every one of the 12 variants
-             against its plain version on the card, exactly, at reps 1-3;
+             (roofline_op_mix, roofline_add_chain, roofline_narrow_mix,
+             roofline_strip, roofline_mxu) at K = 30, each variant at its
+             largest WS (64; 12 for stripmatch / mxumatch / mxumatch8, whose
+             planes live in shared memory): every copy of every one of the
+             15 variants against its plain version on the card, exactly, at
+             reps 1-3 (the three match-precompute variants also at WS 8);
              the plain versions' times; then the tool's own entry point
              (``python -m havac_tpu_torch.tools.roofline``) times each
-             kernel differentially and fails a variant whose rate would need
-             more integer instructions than the card issues. Prints the
-             current/perrow GCUPS-equiv beside the main path's sweep GCUPS.
+             kernel differentially, and ``current`` again at WS 12 beside
+             the three, and fails a variant whose rate would need more
+             instructions than the card issues. Prints the current/perrow
+             GCUPS-equiv beside the main path's sweep GCUPS.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; the run fails if a kernel of the path did not launch. The
-line before the last is the kernels' JSON record; the last line is
+line before the last is the kernels' JSON record, with each kernel's bound:
+the larger of its bytes over the card's memory rate and its operations over
+the card's peak rate for them: ``MIN_OPS`` instructions a word and row over
+the card's issue lanes, and its logic instructions over the INT32 lanes, at
+the maximum SM clock (the sweep and the dump: ``current``'s counts, one
+word per 3 cells). The sweep kernel's share of the measured ``current``
+ceiling is printed beside it. The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -95,12 +105,26 @@ ROOFLINE_REPLACES = {
                           ":485)",
     "roofline_narrow_mix": "tools/roofline.py:569 (make_variant -> kernel8 "
                            ":520)",
+    "roofline_strip": "tools/roofline.py:373 (make_variant -> kernel_strip "
+                      ":323)",
+    "roofline_mxu": "tools/roofline.py:464 (make_variant -> kernel_mxu :409)",
 }
 # The variant whose times stand for each kernel in the kernels line.
 ROOFLINE_SHOWN = {"roofline_op_mix": "current", "roofline_add_chain": "add8",
-                  "roofline_narrow_mix": "int8mix"}
+                  "roofline_narrow_mix": "int8mix",
+                  "roofline_strip": "stripmatch", "roofline_mxu": "mxumatch"}
 ROOFLINE_ROWS = 30
 ROOFLINE_LO, ROOFLINE_HI = 64, 4160
+MATCH_PRECOMPUTE = ("stripmatch", "mxumatch", "mxumatch8")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+
+
+def bound(nbytes: float, op_seconds: float) -> dict:
+    """The least time for the work: bytes over the memory rate or the
+    operations' time at the card's rate, whichever is larger."""
+    byte_s = nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(byte_s, op_seconds) * 1e3,
+            "bound_by": "bytes" if byte_s >= op_seconds else "operations"}
 
 
 def log(msg: str) -> None:
@@ -305,7 +329,9 @@ def phase_percell(dev, engine, smi) -> dict:
                                    dp_matrix_kernel(sym, sc, icr, rr)))
         log(f"[percell] {tag}: {Pc} x {Lc} card={card} exact")
     return {"launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "cells": P * L,
+            # symbols and scores read, every cell's state written
+            "bytes": L + P * 4 + P * L}
 
 
 def phase_scan(dev, engine, hmm, work) -> None:
@@ -405,6 +431,8 @@ def run_paths(dev, smi, work, max_err) -> dict:
         f"raw_hits={st.num_raw_hits} hits={len(hits)} "
         f"native_active={st.native_active} regrows={st.overflow_retries} "
         f"LAUNCHES={launches}")
+    if st.native_active is not True:
+        raise AssertionError("the port's native host core did not load")
     log(f"[main] phases {json.dumps({k: round(v, 4) for k, v in st.pipeline_prof.items()})}")
     if launches != st.num_chunks:
         raise AssertionError(f"LAUNCHES={launches} != chunks={st.num_chunks}")
@@ -458,6 +486,11 @@ def run_paths(dev, smi, work, max_err) -> dict:
     log(f"[timing] chunk {codes.shape[0]} x {rchunk}: kernel {ms:.3f} ms "
         f"({cells / ms / 1e6:.2f} GCUPS), plain {plain_ms:.3f} ms "
         f"({cells / plain_ms / 1e6:.2f} GCUPS); {smi}")
+    # Bytes of the timed chunk: symbols, scores, the boundary state and
+    # carry read, the final state and carry and the hit keys written.
+    Lc = codes.shape[0]
+    sweep_bytes = (Lc + rchunk * 4 + 2 * 4 * Lc + 2 * 4 * (rchunk + 1)
+                   + 8 * int(out.count.item()))
     del codes, tsc, ist, icr, out
 
     # ---- the per-cell readouts, then the multi-file paths
@@ -467,66 +500,103 @@ def run_paths(dev, smi, work, max_err) -> dict:
     return {"kernels": [
         {"name": "ssv_sweep", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-         "ms": ms, "plain_ms": plain_ms},
+         "ms": ms, "plain_ms": plain_ms, "cells": cells,
+         "bytes": sweep_bytes},
         {"name": "ssv_sweep_dump", "route": "cuda", "source": SOURCE,
          "replaces": DUMP_REPLACES, **dump}]}, st.gcups
 
 
-def phase_roofline(dev, smi, main_gcups) -> list:
-    ws, k = roofline.MAX_WS, ROOFLINE_ROWS
-    card = roofline.Card.query(dev)
+def phase_roofline(dev, smi, card, main_gcups):
+    k = ROOFLINE_ROWS
     err = dict.fromkeys(roofline.KERNELS, 0)
     plain = {}
     for name in roofline.VARIANTS:
-        x = roofline.make_inputs(name, ws, k, dev)
-        copies = card.sms * roofline.blocks_per_sm(name, ws, k)
-        for reps in (1, 2, 3):
-            got = roofline.op_mix(x, reps, copies)
-            torch.cuda.synchronize()
-            want = roofline.op_mix_plain(name, x, reps)
-            d = int((got.long() - want.long()).abs().max())
-            kernel = roofline.KERNEL_OF[name]
-            err[kernel] = max(err[kernel], d)
-            if d:
-                raise AssertionError(f"{name}: kernel differs from plain by "
-                                     f"{d} at reps={reps}")
+        top = roofline.max_ws(name, k)
+        for ws in (top, 8) if name in MATCH_PRECOMPUTE else (top,):
+            x = roofline.make_inputs(name, ws, k, dev)
+            copies = card.sms * roofline.blocks_per_sm(name, ws, k)
+            for reps in (1, 2, 3):
+                got = roofline.op_mix(x, reps, copies)
+                torch.cuda.synchronize()
+                want = roofline.op_mix_plain(name, x, reps)
+                d = int((got.long() - want.long()).abs().max())
+                kernel = roofline.KERNEL_OF[name]
+                err[kernel] = max(err[kernel], d)
+                if d:
+                    raise AssertionError(f"{name}: kernel differs from plain "
+                                         f"by {d} at WS {ws}, reps={reps}")
+            log(f"[roofline] {name}: WS {ws}, {copies} copies == plain "
+                f"exactly at reps 1-3")
+        x = roofline.make_inputs(name, top, k, dev)
         plain[name] = roofline.time_differential(
-            lambda reps: roofline.op_mix_plain(name, x, reps), 1, 3, dev,
-            iters=2)[0]
-        log(f"[roofline] {name}: {copies} copies == plain exactly at reps "
-            f"1-3; plain {plain[name] * 1e3:.4f} ms/rep")
+            lambda reps: roofline.op_mix_plain(name, x, reps), 1, 4, dev,
+            iters=3)[0]
+        log(f"[roofline] {name}: plain {plain[name] * 1e3:.4f} ms/rep at "
+            f"WS {top}")
 
-    path = os.path.join(ROOT, "build", "roofline_smoke.json")
+    # The tool: every variant at its largest WS, then `current` at the
+    # match-precompute variants' WS (like against like), filling the card
+    # and at their one block per SM.
+    ws_small = roofline.max_ws(MATCH_PRECOMPUTE[0], k)
+    paths = [os.path.join(ROOT, "build", f"roofline_smoke{i}.json")
+             for i in range(3)]
     roofline.ROOFLINE_LAUNCHES.update(dict.fromkeys(roofline.KERNELS, 0))
-    rc = roofline.main(["--ws", str(ws), "--rows", str(k), "--lo",
-                        str(ROOFLINE_LO), "--hi", str(ROOFLINE_HI),
-                        "--json", path])
+    span = ["--rows", str(k), "--lo", str(ROOFLINE_LO), "--hi",
+            str(ROOFLINE_HI)]
+    small = span + ["--ws", str(ws_small), "--variants", "current"]
+    rcs = [roofline.main(span + ["--json", paths[0]]),
+           roofline.main(small + ["--json", paths[1]]),
+           roofline.main(small + ["--copies", str(card.sms), "--json",
+                                  paths[2]])]
     launches = dict(roofline.ROOFLINE_LAUNCHES)
-    with open(path) as f:
-        results = json.load(f)["results"]
-    os.remove(path)
-    if rc != 0 or sorted(results) != sorted(roofline.VARIANTS):
-        raise AssertionError(f"roofline tool rc={rc}: {sorted(results)}")
+    runs = []
+    for path in paths:
+        with open(path) as f:
+            runs.append(json.load(f)["results"])
+        os.remove(path)
+    results, small, one_block = runs
+    if rcs != [0, 0, 0] or sorted(results) != sorted(roofline.VARIANTS):
+        raise AssertionError(f"roofline tool rc={rcs}: {sorted(results)}")
     for kernel, n in launches.items():
         if n == 0:
             raise AssertionError(f"{kernel} was not launched by the tool")
     for name, r in results.items():
-        log(f"[roofline] {name}: kernel {r['sec_per_rep'] * 1e3:.6f} ms/rep "
-            f"({r['copies']} copies, {r['gcups_equiv_card']:.2f} "
-            f"GCUPS-equiv on the card, issue share {r['issue_share']:.3f}, "
-            f"INT32 share {r['int32_share']:.3f}), plain "
-            f"{plain[name] * 1e3:.4f} ms/rep (1 instance); {smi}")
+        log(f"[roofline] {name}: WS {r['ws']}, kernel "
+            f"{r['sec_per_rep'] * 1e3:.6f} ms/rep ({r['copies']} copies, "
+            f"{r['gcups_equiv_card']:.2f} GCUPS-equiv on the card, issue "
+            f"share {r['issue_share']:.3f}, INT32 share "
+            f"{r['int32_share']:.3f}), plain {plain[name] * 1e3:.4f} ms/rep "
+            f"(1 instance); {smi}")
+    for cur in (small["current"], one_block["current"]):
+        log(f"[roofline] current: WS {cur['ws']}, kernel "
+            f"{cur['sec_per_rep'] * 1e3:.6f} ms/rep ({cur['copies']} copies, "
+            f"{cur['gcups_equiv_card']:.2f} GCUPS-equiv on the card, issue "
+            f"share {cur['issue_share']:.3f}); {smi}")
+        for name in MATCH_PRECOMPUTE:
+            g = results[name]["gcups_equiv_card"]
+            log(f"[roofline] {name} / current at WS {ws_small}, "
+                f"{cur['copies']} copies: {g / cur['gcups_equiv_card']:.4f}")
     log(f"[roofline] LAUNCHES={json.dumps(launches)}")
     for name in ("current", "perrow"):
         g = results[name]["gcups_equiv_card"]
         log(f"[roofline] main-path sweep {main_gcups:.2f} GCUPS = "
             f"{main_gcups / g:.4f} of {name}'s {g:.2f} GCUPS-equiv")
-    return [{"name": kernel, "route": "cuda", "source": ROOFLINE_SOURCE,
-             "replaces": ROOFLINE_REPLACES[kernel],
-             "launches": launches[kernel], "max_abs_err": err[kernel],
-             "ms": results[ROOFLINE_SHOWN[kernel]]["sec_per_rep"] * 1e3,
-             "plain_ms": plain[ROOFLINE_SHOWN[kernel]] * 1e3}
-            for kernel in roofline.KERNELS]
+
+    entries = []
+    for kernel in roofline.KERNELS:
+        name = ROOFLINE_SHOWN[kernel]
+        r = results[name]
+        # One rep of every copy at the card's peak; no memory traffic
+        # inside the loop.
+        words = r["copies"] * k * r["ws"] * 128
+        entries.append({
+            "name": kernel, "route": "cuda", "source": ROOFLINE_SOURCE,
+            "replaces": ROOFLINE_REPLACES[kernel],
+            "launches": launches[kernel], "max_abs_err": err[kernel],
+            "ms": r["sec_per_rep"] * 1e3, "plain_ms": plain[name] * 1e3,
+            **bound(0, max(card.op_seconds(name, words))),
+            "library_ms": None})
+    return entries, results["current"]["gcups_equiv_card"]
 
 
 def main() -> int:
@@ -559,7 +629,20 @@ def main() -> int:
         record, main_gcups = run_paths(dev, smi, work, max_err)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    record["kernels"] += phase_roofline(dev, smi, main_gcups)
+    card = roofline.Card.query(dev)
+    entries, current_gcups = phase_roofline(dev, smi, card, main_gcups)
+    for entry in record["kernels"]:  # `current`'s ops, one word per 3 cells
+        cells = entry.pop("cells")
+        entry.update(bound(entry.pop("bytes"),
+                           max(card.op_seconds("current", cells / 3))),
+                     library_ms=None)
+        gcups = cells / entry["ms"] / 1e6
+        log(f"[bound] {entry['name']}: {entry['ms']:.3f} ms against a bound "
+            f"of {entry['bound_ms']:.3f} ms ({entry['bound_by']}) = "
+            f"{entry['bound_ms'] / entry['ms']:.4f} of the bound; "
+            f"{gcups:.2f} GCUPS = {gcups / current_gcups:.4f} of current's "
+            f"measured {current_gcups:.2f} GCUPS-equiv; {smi}")
+    record["kernels"] += entries
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

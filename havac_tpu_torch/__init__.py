@@ -3,8 +3,9 @@
 The port of `havac_tpu` (JAX on a TPU) to one NVIDIA Hopper GPU: the same
 `Havac` API and the same hits, with the SSV sweep as a hand-written CUDA
 kernel (`csrc/ssv_sweep.cu`) and its plain PyTorch version for CPU tensors.
-Host code that never touches JAX (FASTA/HMM parsing, score reprojection,
-hit resolution, the native core) is imported from `havac_tpu`.
+The host code (FASTA/HMM parsing, score reprojection, hit resolution,
+validation, the native core) is the port's own copy of the JAX package's,
+under the same relative paths; the port imports nothing of `havac_tpu`.
 
     from havac_tpu_torch import Havac
     hv = Havac(p_value=0.02, device="cuda")
@@ -14,7 +15,7 @@ hit resolution, the native core) is imported from `havac_tpu`.
     hits = hv.hits()
 """
 
-from havac_tpu.scoring.reprojection import (
+from havac_tpu_torch.scoring.reprojection import (
     gumbel_inverse_survival,
     project_scores_for_threshold256,
     threshold256_scale_factor,

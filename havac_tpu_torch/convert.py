@@ -1,21 +1,27 @@
-"""Carry state from the JAX engine into the PyTorch engine.
+"""Carry state and inputs from the JAX engine into the PyTorch engine.
 
 The system has no weights; its parameters are the projected score rows and
 the database tables, and its chain state is the DP row state and the carry
 column. These helpers turn the JAX engine's numpy state into the port's
-tensors. They import nothing of JAX: the SWAR unpacking is reimplemented
-here (`havac_tpu/ops/ssv_swar.py` `unpack_state` imports jax). Either JAX
-kernel's chain state carries over: :func:`state_from_swar` reads the SWAR
-kernel's, :func:`state_from_unpacked` the unpacked kernel's.
+tensors, and the JAX package's input objects (profile HMMs, encoded
+databases) into the port's own classes (:func:`profile_hmms_from_reference`,
+:func:`database_from_reference`). They import nothing of JAX or of the JAX
+package: objects are read by their fields, and the SWAR unpacking is
+reimplemented here (`havac_tpu/ops/ssv_swar.py` `unpack_state` imports
+jax). Either JAX kernel's chain state carries over: :func:`state_from_swar`
+reads the SWAR kernel's, :func:`state_from_unpacked` the unpacked kernel's.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from havac_tpu_torch.io.fasta import SequenceDatabase
+from havac_tpu_torch.io.hmm import ProfileHmm
 
 SWAR_FIELD_BITS = 10  # three 10-bit cells per int32 word
 SWAR_FIELD_MASK = (1 << SWAR_FIELD_BITS) - 1
@@ -35,6 +41,30 @@ class EngineTensors:
     lengths: torch.Tensor  # int64 (sequences,)
     alphabet: str
     strand: str
+
+
+def profile_hmms_from_reference(models) -> List[ProfileHmm]:
+    """The port's :class:`ProfileHmm` objects with the fields of JAX-package
+    ``ProfileHmm`` objects (any objects with those fields), scores copied."""
+    return [ProfileHmm(
+        name=m.name, model_length=int(m.model_length),
+        max_length=int(m.max_length), alphabet=m.alphabet,
+        msv_mu=float(m.msv_mu), msv_lambda=float(m.msv_lambda),
+        match_scores=np.array(m.match_scores, dtype=np.float32),
+        accession=m.accession, description=m.description,
+        extra_header_lines=list(m.extra_header_lines)) for m in models]
+
+
+def database_from_reference(db) -> SequenceDatabase:
+    """The port's :class:`SequenceDatabase` with the fields of a
+    JAX-package ``SequenceDatabase`` (any object with those fields),
+    arrays copied."""
+    return SequenceDatabase(
+        codes=np.array(db.codes, dtype=np.uint8),
+        starts=np.array(db.starts, dtype=np.int64),
+        lengths=np.array(db.lengths, dtype=np.int64),
+        names=list(db.names), seed=int(db.seed),
+        alphabet=getattr(db, "alphabet", "dna"))
 
 
 def from_reference_engine(engine, device) -> EngineTensors:

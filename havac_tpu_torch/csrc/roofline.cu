@@ -1,7 +1,7 @@
 // Op-mix roofline probes for NVIDIA Hopper (sm_90a): what the SM's integer
 // pipes sustain on the exact per-row op sequence of the SWAR SSV update.
 //
-// Three kernels, the counterparts of the Pallas TPU kernels of
+// Five kernels, the counterparts of the Pallas TPU kernels of
 // tools/roofline.py `make_variant`:
 //
 //   op_mix_kernel<V>      replaces `kernel` (tools/roofline.py:241, launched
@@ -16,6 +16,12 @@
 //                         full row update in int8 / int16 (4:1 select match,
 //                         wrapping add, carry-out logic), a flush every 8
 //                         rows.
+//   strip_mix_kernel      replaces `kernel_strip` (:323, launched at :373):
+//                         stripmatch, `current` with the strip's K match
+//                         planes built once a rep into shared memory.
+//   mxu_mix_kernel<B>     replaces `kernel_mxu` (:409, launched at :464):
+//                         mxumatch (bf16) / mxumatch8 (int8), the match from
+//                         one tensor-core product (mma.sync) a flush.
 //
 // Each block computes one instance, equal word for word to the TPU kernel's
 // output on the same inputs; `copies` blocks compute `copies` identical
@@ -53,6 +59,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -101,6 +109,51 @@ __device__ __forceinline__ void store16(int32_t* p, const int32_t (&v)[kWords]) 
 
 __host__ __device__ constexpr bool rolls(int v) {
   return v != kNoroll && v != kAddonly && v != kMulcost;
+}
+
+// The roll of `stripmatch` and `mxumatch*`: the word left of this thread's
+// first word in the previous row (the seam stitch (state[N-1] << 10) | 7
+// for thread 0), as op_mix_kernel computes it inline. Each call is one row:
+// one shared word per warp, double-buffered in `edge` (2 * kMaxWarps
+// words) behind one __syncthreads. (op_mix_kernel keeps its own copy:
+// sharing these helpers changed its compiled row loop and its measured
+// rate, the ceiling the sweep kernel is held against.)
+__device__ __forceinline__ int32_t left_word(int32_t last, int32_t* edge,
+                                             int& buf) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int32_t* e = edge + buf * kMaxWarps;
+  if (lane == 31) e[warp] = last;
+  __syncthreads();
+  int32_t left = __shfl_up_sync(0xffffffffu, last, 1);
+  if (lane == 0)
+    left = warp > 0 ? e[warp - 1] : (shl(e[(blockDim.x >> 5) - 1], 10) | 7);
+  buf ^= 1;
+  return left;
+}
+
+// `current`'s row update of 16 words given their match words: shift by one
+// word, biased add, bit-9 hit into `bits`, keep mask.
+__device__ __forceinline__ void row_update(int32_t (&st)[kWords],
+                                           int32_t (&bits)[kWords],
+                                           const int32_t (&match)[kWords],
+                                           int32_t left) {
+#pragma unroll
+  for (int j = kWords - 1; j >= 0; --j) {
+    const int32_t w = add(j > 0 ? st[j - 1] : left, match[j]);
+    const int32_t t9 = w >> 9;
+    bits[j] = shl(bits[j], 1) | (t9 & kFM);
+    const int32_t kmask = (w >> 8) & ~t9 & kFM;
+    st[j] = w & mul(kmask, 255);
+  }
+}
+
+__device__ __forceinline__ void flush(int32_t (&bits)[kWords],
+                                      int32_t (&acc)[kWords]) {
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    acc[j] ^= bits[j];  // keep the hit ops live
+    bits[j] = 0;
+  }
 }
 
 // One instance per block: blockDim.x = WS * 8 threads, kWords words each.
@@ -340,6 +393,217 @@ narrow_mix_kernel(const int32_t* __restrict__ scores,
   store16(out + (long long)blockIdx.x * nthreads * kWords + base, res);
 }
 
+// stripmatch: replaces `kernel_strip` (tools/roofline.py:323, launched at
+// :373). Each rep first builds the strip's K match planes (`current`'s
+// match construction) into shared memory, then runs `current`'s row update
+// with the match as one shared-memory load. A thread writes and reads only
+// its own words, stored [k][quad][thread] as int4 so that a warp's 16-byte
+// accesses are conflict-free; no barrier separates the two phases. The
+// planes take K * WS * 512 bytes of the block's 232,448: WS <= 12 at K = 30
+// (the TPU kernel held them in VMEM). Bound: issue, plus shared-memory
+// bandwidth (one 16-byte store and load per 4 words and row).
+__global__ void __launch_bounds__(kMaxThreads, 1)
+strip_mix_kernel(const int32_t* __restrict__ scores,
+                 const int32_t* __restrict__ i1g,
+                 const int32_t* __restrict__ i2g,
+                 const int32_t* __restrict__ i3g, int K, int reps,
+                 int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) int32_t smem[];
+  int32_t* s_scores = smem;                  // kNS * K * 4
+  int32_t* s_edge = s_scores + kNS * K * 4;  // 2 * kMaxWarps
+  int4* s_planes = reinterpret_cast<int4*>(s_edge + 2 * kMaxWarps);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  for (int x = tid; x < kNS * K * 4; x += nthreads) s_scores[x] = scores[x];
+
+  const int base = tid * kWords;
+  int32_t st[kWords], bits[kWords], acc[kWords], match[kWords];
+  int32_t a1[kWords], a2[kWords], a3[kWords];
+  load16(i1g + base, a1);
+  load16(i2g + base, a2);
+  load16(i3g + base, a3);
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    st[j] = a1[j];
+    bits[j] = 0;
+    acc[j] = 0;
+  }
+  __syncthreads();
+
+  int buf = 0;
+  for (int r = 0; r < reps; ++r) {
+    const int32_t* srow = s_scores + (r % kNS) * K * 4;
+    for (int k = 0; k < K; ++k) {  // phase 1: the strip's match planes
+      const int4 m = *reinterpret_cast<const int4*>(srow + 4 * k);
+      const int32_t c = mul(m.x, kFM);
+      const int32_t d1 = sub(m.y, m.x), d2 = sub(m.z, m.x),
+                    d3 = sub(m.w, m.x);
+#pragma unroll
+      for (int j = 0; j < kWords; ++j)
+        match[j] = add(add(c, mul(a1[j], d1)),
+                       add(mul(a2[j], d2), mul(a3[j], d3)));
+#pragma unroll
+      for (int q = 0; q < kWords / 4; ++q)
+        s_planes[(k * 4 + q) * nthreads + tid] =
+            make_int4(match[4 * q], match[4 * q + 1], match[4 * q + 2],
+                      match[4 * q + 3]);
+    }
+    int f = 0;
+    for (int k = 0; k < K; ++k) {  // phase 2: the match is one load
+      const int32_t left = left_word(st[kWords - 1], s_edge, buf);
+#pragma unroll
+      for (int q = 0; q < kWords / 4; ++q) {
+        const int4 v = s_planes[(k * 4 + q) * nthreads + tid];
+        match[4 * q] = v.x; match[4 * q + 1] = v.y;
+        match[4 * q + 2] = v.z; match[4 * q + 3] = v.w;
+      }
+      row_update(st, bits, match, left);
+      if (++f == kFlush) {
+        f = 0;
+        flush(bits, acc);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) st[j] = add(add(st[j], bits[j]), acc[j]);
+  store16(out + (long long)blockIdx.x * nthreads * kWords + base, st);
+}
+
+// One tensor-core product of a flush: D (16 x 8) = A (16 x K) * B (K x 8),
+// A row-major, B column-major, fragments as PTX's mma.sync lays them out.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a0), "r"(a1), "r"(0u), "r"(0u), "r"(b0), "r"(0u), "f"(0.f),
+        "f"(0.f), "f"(0.f), "f"(0.f));
+}
+
+__device__ __forceinline__ void mma_s8(int32_t (&d)[4], uint32_t a0,
+                                       uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a0), "r"(a1), "r"(0u), "r"(0u), "r"(b0), "r"(0u), "r"(0),
+        "r"(0), "r"(0), "r"(0));
+}
+
+// The match word from a product column's three fields (raw bits of the
+// accumulator: int32, or f32 converted as astype(int32) does).
+template <int B>
+__device__ __forceinline__ int32_t repack(int32_t x0, int32_t x1, int32_t x2) {
+  if (B == 2) {
+    x0 = __float2int_rz(__int_as_float(x0));
+    x1 = __float2int_rz(__int_as_float(x1));
+    x2 = __float2int_rz(__int_as_float(x2));
+  }
+  return add(add(x0, shl(x1, 10)), add(shl(x2, 20), 256 * kFM));
+}
+
+constexpr int kMxuPad = 8;  // words of row padding: conflict-free D stores
+
+// mxumatch / mxumatch8: replaces `kernel_mxu` (tools/roofline.py:409,
+// launched at :464). Once per flush of 10 rows the block computes the
+// product (10 x 4 scores) x (4 x 3*WS*128 one-hot) on the tensor cores with
+// mma.sync (bf16 m16n8k16 with an f32 accumulator, or s8 m16n8k32 with an
+// s32 one), M padded from 10 to 16 and K from 4 to 16 / 32 with zeros,
+// and stages it in shared memory (the TPU kernel kept it in VMEM); then each
+// of the 10 rows repacks m0 + (m1 << 10) + (m2 << 20) + 256 * FMASK from the
+// product's three WS-row thirds (converting f32 to int32 for bf16) and runs
+// `current`'s row update. The one-hot is staged once per block as [column]
+// [symbol], so a B fragment is one 32-bit load; the product takes
+// 10 * (3*WS*128 + 8) * 4 bytes, WS <= 12. Warp w takes n-tiles w, w +
+// warps, ...; a lane keeps D rows g (and g + 8 for g < 2, rows 8-9).
+// Bound: issue (the repack and row update); the products are 3/80 of an
+// mma per word and row.
+template <int B>  // bytes per input element: 1 = int8, 2 = bf16
+__global__ void __launch_bounds__(kMaxThreads, 1)
+mxu_mix_kernel(const uint8_t* __restrict__ scores,
+               const uint8_t* __restrict__ onehot, int nf, int reps,
+               int32_t* __restrict__ out) {
+  using Acc = typename std::conditional<B == 1, int32_t, float>::type;
+  extern __shared__ __align__(16) int32_t smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+  const int words = nthreads * kWords;       // WS * 128
+  const int ncols = 3 * words, stride = ncols + kMxuPad;
+  const int sc_bytes = kNS * nf * 40 * B;    // (NS * NF, 10, 4)
+  int32_t* s_edge = smem;                                    // 2 * kMaxWarps
+  Acc* s_prod = reinterpret_cast<Acc*>(s_edge + 2 * kMaxWarps);  // 10 rows
+  uint32_t* s_oh = reinterpret_cast<uint32_t*>(s_prod + 10 * stride);
+  uint32_t* s_sc = s_oh + ncols * B;  // after the one-hot's ncols * 4 * B B
+  uint8_t* s_sc8 = reinterpret_cast<uint8_t*>(s_sc);
+  uint8_t* s_oh8 = reinterpret_cast<uint8_t*>(s_oh);
+  for (int x = tid; x < sc_bytes; x += nthreads) s_sc8[x] = scores[x];
+  for (int x = tid; x < 4 * ncols; x += nthreads) {  // [symbol][col] ->
+    const int a = x / ncols, col = x - a * ncols;      // [col][symbol]
+#pragma unroll
+    for (int b = 0; b < B; ++b)
+      s_oh8[(col * 4 + a) * B + b] = onehot[(long long)x * B + b];
+  }
+
+  int32_t st[kWords], bits[kWords], acc[kWords], match[kWords];
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {  // the TPU kernel starts from zeros
+    st[j] = 0;
+    bits[j] = 0;
+    acc[j] = 0;
+  }
+  const int g = lane >> 2, q = lane & 3, base = tid * kWords;
+  int buf = 0;
+  for (int r = 0; r < reps; ++r) {
+    for (int f = 0; f < nf; ++f) {
+      const int fi = (r % kNS) * nf + f;
+      __syncthreads();  // the previous flush's product is consumed
+      uint32_t a0 = 0, a1 = 0;  // A rows g and g + 8; K columns 0-3
+      if (q < (B == 1 ? 1 : 2)) {
+        a0 = s_sc[(fi * 10 + g) * (B == 1 ? 1 : 2) + q];
+        if (g < 2) a1 = s_sc[(fi * 10 + g + 8) * (B == 1 ? 1 : 2) + q];
+      }
+#pragma unroll 4
+      for (int t = warp; t < ncols / 8; t += nwarps) {
+        const int col = t * 8 + g;  // B fragment: column g of tile t
+        uint32_t b0 = 0;
+        if (q < (B == 1 ? 1 : 2)) b0 = s_oh[col * (B == 1 ? 1 : 2) + q];
+        Acc d[4];
+        if constexpr (B == 1) mma_s8(d, a0, a1, b0);
+        else mma_bf16(d, a0, a1, b0);
+        Acc* p = s_prod + g * stride + t * 8 + 2 * q;
+        p[0] = d[0];
+        p[1] = d[1];
+        if (g < 2) {
+          p[8 * stride] = d[2];
+          p[8 * stride + 1] = d[3];
+        }
+      }
+      __syncthreads();
+      for (int k = 0; k < kFlush; ++k) {
+        const int32_t left = left_word(st[kWords - 1], s_edge, buf);
+        const int4* row =
+            reinterpret_cast<const int4*>(s_prod + k * stride + base);
+#pragma unroll
+        for (int qd = 0; qd < kWords / 4; ++qd) {  // the three thirds
+          const int4 x0 = row[qd], x1 = row[words / 4 + qd],
+                     x2 = row[words / 2 + qd];
+          match[4 * qd] = repack<B>(x0.x, x1.x, x2.x);
+          match[4 * qd + 1] = repack<B>(x0.y, x1.y, x2.y);
+          match[4 * qd + 2] = repack<B>(x0.z, x1.z, x2.z);
+          match[4 * qd + 3] = repack<B>(x0.w, x1.w, x2.w);
+        }
+        row_update(st, bits, match, left);
+      }
+      flush(bits, acc);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) st[j] = add(add(st[j], bits[j]), acc[j]);
+  store16(out + (long long)blockIdx.x * nthreads * kWords + base, st);
+}
+
 using OpMixFn = void (*)(const int32_t*, const int32_t*, const int32_t*,
                          const int32_t*, int, int, int32_t*);
 using AddFn = void (*)(const int32_t*, int, int, int32_t*);
@@ -350,6 +614,8 @@ const OpMixFn kOpMix[kNumVariants] = {
     op_mix_kernel<kMulcost>, op_mix_kernel<kAndmatch>};
 const AddFn kAdd[2] = {add_chain_kernel<1>, add_chain_kernel<2>};
 const OpMixFn kNarrow[2] = {narrow_mix_kernel<1>, narrow_mix_kernel<2>};
+using MxuFn = void (*)(const uint8_t*, const uint8_t*, int, int, int32_t*);
+const MxuFn kMxu[2] = {mxu_mix_kernel<1>, mxu_mix_kernel<2>};
 
 bool bad_shape(int ws, int k, int reps, int copies) {
   return ws < 4 || ws > kMaxThreads * kWords / 128 || ws % 4 != 0 || k < 1 ||
@@ -360,6 +626,31 @@ size_t op_mix_smem(int k) {
   return sizeof(int32_t) * (kNS * k * 4 + 2 * kMaxWarps + 2 * (k + 1));
 }
 size_t narrow_smem(int k) { return sizeof(int32_t) * kNS * k * 4; }
+size_t strip_smem(int ws, int k) {  // scores, edges, K match planes
+  return sizeof(int32_t) * (kNS * k * 4 + 2 * kMaxWarps) +
+         sizeof(int4) * (size_t)k * 4 * (ws * 128 / kWords);
+}
+size_t mxu_smem(int ws, int k, int bytes) {  // edges, product, one-hot, scores
+  const size_t ncols = 3 * (size_t)ws * 128;
+  const size_t sc = (size_t)kNS * (k / kFlush) * 40 * bytes;
+  return sizeof(int32_t) * (2 * kMaxWarps + 10 * (ncols + kMxuPad)) +
+         ncols * 4 * bytes + (sc + 15) / 16 * 16;
+}
+
+// Lets `fn` take `bytes` of dynamic shared memory (above 48 KB only by
+// opting in); cudaErrorInvalidValue above what a block may use.
+template <typename F>
+cudaError_t allow_smem(F fn, size_t bytes) {
+  int dev = 0, limit = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e != cudaSuccess) return e;
+  if (bytes > (size_t)limit) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
 
 }  // namespace
 
@@ -398,12 +689,58 @@ extern "C" int hv_roofline_narrow_mix(int bytes, const int32_t* scores,
   return cudaGetLastError();
 }
 
+// stripmatch; WS as shared memory allows (strip_smem).
+extern "C" int hv_roofline_strip(const int32_t* scores, const int32_t* i1,
+                                 const int32_t* i2, const int32_t* i3, int ws,
+                                 int k, int reps, int copies, int32_t* out,
+                                 cudaStream_t stream) {
+  if (bad_shape(ws, k, reps, copies)) return cudaErrorInvalidValue;
+  const size_t smem = strip_smem(ws, k);
+  const cudaError_t e = allow_smem(strip_mix_kernel, smem);
+  if (e != cudaSuccess) return e;
+  strip_mix_kernel<<<copies, ws * 128 / kWords, smem, stream>>>(
+      scores, i1, i2, i3, k, reps, out);
+  return cudaGetLastError();
+}
+
+// mxumatch (bytes = 2, bf16) / mxumatch8 (bytes = 1, int8): scores
+// (16 * K / 10, 10, 4) and the one-hot (4, 3 * WS, 128) of that type; K a
+// multiple of 10; WS as shared memory allows (mxu_smem).
+extern "C" int hv_roofline_mxu(int bytes, const void* scores,
+                               const void* onehot, int ws, int k, int reps,
+                               int copies, int32_t* out, cudaStream_t stream) {
+  if ((bytes != 1 && bytes != 2) || bad_shape(ws, k, reps, copies) ||
+      k % kFlush != 0)
+    return cudaErrorInvalidValue;
+  const size_t smem = mxu_smem(ws, k, bytes);
+  const cudaError_t e = allow_smem(kMxu[bytes - 1], smem);
+  if (e != cudaSuccess) return e;
+  kMxu[bytes - 1]<<<copies, ws * 128 / kWords, smem, stream>>>(
+      static_cast<const uint8_t*>(scores), static_cast<const uint8_t*>(onehot),
+      k / kFlush, reps, out);
+  return cudaGetLastError();
+}
+
 // Resident blocks per SM for one kernel (0 op_mix with `which` the variant,
-// 1 add_chain / 2 narrow_mix with `which` the lane bytes) at (ws, k).
+// 1 add_chain / 2 narrow_mix / 4 mxu with `which` the lane or input bytes,
+// 3 strip) at (ws, k).
 extern "C" int hv_roofline_blocks_per_sm(int kernel, int which, int ws, int k,
                                          int* blocks) {
   if (bad_shape(ws, k, 0, 1)) return cudaErrorInvalidValue;
   const int threads = ws * 128 / kWords;
+  if (kernel == 3) {
+    const cudaError_t e = allow_smem(strip_mix_kernel, strip_smem(ws, k));
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, strip_mix_kernel, threads, strip_smem(ws, k));
+  }
+  if (kernel == 4 && (which == 1 || which == 2) && k % kFlush == 0) {
+    const size_t smem = mxu_smem(ws, k, which);
+    const cudaError_t e = allow_smem(kMxu[which - 1], smem);
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, kMxu[which - 1], threads, smem);
+  }
   if (kernel == 0 && which >= 0 && which < kNumVariants)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks, kOpMix[which], threads, op_mix_smem(k));

@@ -28,16 +28,16 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from havac_tpu import native
-from havac_tpu.hits.decode import ResolvedHits
-from havac_tpu.hits.verify import HitVerificationError, verify_hits
-from havac_tpu.io.fasta import (SequenceDatabase,
+from havac_tpu_torch import native
+from havac_tpu_torch.hits.decode import ResolvedHits
+from havac_tpu_torch.hits.verify import HitVerificationError, verify_hits
+from havac_tpu_torch.io.fasta import (SequenceDatabase,
                                 augment_with_reverse_complement,
                                 load_fasta_database)
-from havac_tpu.io.hmm import (ProfileHmm, model_length_prefix_sums, read_hmm,
+from havac_tpu_torch.io.hmm import (ProfileHmm, model_length_prefix_sums, read_hmm,
                               read_hmm_text)
-from havac_tpu.ops.common import round_up
-from havac_tpu.scoring.reprojection import project_models
+from havac_tpu_torch.ops.common import round_up
+from havac_tpu_torch.scoring.reprojection import project_models
 from havac_tpu_torch.engine.pipeline import PipelinedSweep, pairs_from_keys
 
 DEFAULT_P_VALUE = 0.02  # the reference CLI's default
@@ -58,6 +58,10 @@ class HavacRunState(enum.Enum):
 
 class HavacUsageError(RuntimeError):
     """API misuse (run before load, hits before completion, ...)."""
+
+
+def _qualname(obj) -> str:
+    return f"{type(obj).__module__}.{type(obj).__qualname__}"
 
 
 @dataclass
@@ -172,7 +176,14 @@ class Havac:
         elif isinstance(src, ProfileHmm):
             models = [src]
         else:
-            models = list(src)
+            models = [src] if hasattr(src, "match_scores") else list(src)
+            foreign = [m for m in models if hasattr(m, "match_scores")
+                       and not isinstance(m, ProfileHmm)]
+            if foreign:
+                raise HavacUsageError(
+                    f"{_qualname(foreign[0])} is not havac_tpu_torch's "
+                    "ProfileHmm: carry models across with "
+                    "havac_tpu_torch.convert.profile_hmms_from_reference")
         if not models:
             raise HavacUsageError("no models to load")
         cards = {m.alphabet_cardinality for m in models}
@@ -223,6 +234,11 @@ class Havac:
         number of forward records."""
         if isinstance(src, SequenceDatabase):
             db = src
+        elif hasattr(src, "codes"):
+            raise HavacUsageError(
+                f"{_qualname(src)} is not havac_tpu_torch's SequenceDatabase: "
+                "carry it across with "
+                "havac_tpu_torch.convert.database_from_reference")
         else:
             db = load_fasta_database(
                 src, pad_multiple=self.pad_multiple, seed=self.seed,

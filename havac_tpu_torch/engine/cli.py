@@ -175,7 +175,7 @@ def cmd_validate(args) -> int:
     """Containment of the engine's hits in nhmmer windows: from a real
     ``--tblout`` file, or from the independent float-space SSV oracle on
     the same inputs."""
-    from havac_tpu.validation import (compare_containment,
+    from havac_tpu_torch.validation import (compare_containment,
                                       engine_hits_for_comparison, load_tblout)
 
     if not args.tblout and args.oracle != "float-ssv":
@@ -191,7 +191,7 @@ def cmd_validate(args) -> int:
     if args.tblout:
         windows = load_tblout(args.tblout)
     else:
-        from havac_tpu.validation.ssv_filter import float_ssv_windows
+        from havac_tpu_torch.validation.ssv_filter import float_ssv_windows
 
         windows = float_ssv_windows(engine.database, engine.models,
                                     engine.p_value)
@@ -220,9 +220,9 @@ def cmd_validate(args) -> int:
 def cmd_quantize(args) -> int:
     """Quantization forensics: rescore nhmmer windows with int8 against
     float projections (host-only; ``--device`` is not used)."""
-    from havac_tpu.io.fasta import load_fasta_database
-    from havac_tpu.io.hmm import read_hmm
-    from havac_tpu.validation import load_tblout, quantization_report
+    from havac_tpu_torch.io.fasta import load_fasta_database
+    from havac_tpu_torch.io.hmm import read_hmm
+    from havac_tpu_torch.validation import load_tblout, quantization_report
 
     models = read_hmm(args.hmm)
     db = load_fasta_database(args.fasta)
@@ -287,7 +287,7 @@ def cmd_serve(args) -> int:
     whose input cannot be read or used answers ``{"file", "error"}`` and the
     server lives on; any other failure (a CUDA error among them) ends the
     process with a non-zero exit."""
-    from havac_tpu.hits.verify import HitVerificationError
+    from havac_tpu_torch.hits.verify import HitVerificationError
     from havac_tpu_torch.engine.api import HavacUsageError
 
     engine = _build_engine(args)

@@ -8,7 +8,7 @@ chained down a column and the boundary-carry column chained across columns,
 both kept on the device. Up to ``lookahead`` chunks are in flight on one
 CUDA stream; each chunk's hit count and key buffer cross to pinned host
 memory by asynchronous copies, and a collector pool sorts and resolves the
-keys (`havac_tpu.native.resolve_keys_native`) while the device sweeps later
+keys (`havac_tpu_torch.native.resolve_keys_native`) while the device sweeps later
 chunks.
 
 The kernel emits its own hit keys and an exact count, so the JAX engine's
@@ -30,9 +30,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from havac_tpu import native
-from havac_tpu.hits.decode import ResolvedHits, resolve_block_with_keys
-from havac_tpu.ops.common import round_up
+from havac_tpu_torch import native
+from havac_tpu_torch.hits.decode import ResolvedHits, resolve_block_with_keys
+from havac_tpu_torch.ops.common import round_up
 from havac_tpu_torch.ops import ssv_cuda
 from havac_tpu_torch.ops.ssv_torch import KEY_POS_BITS, MAX_POS, MAX_ROW
 

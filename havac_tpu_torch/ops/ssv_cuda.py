@@ -115,6 +115,8 @@ def load_library() -> ctypes.CDLL:
                     ("hv_roofline_add_chain", i, [i, p, i, i, i, i, p, p]),
                     ("hv_roofline_narrow_mix", i, [i, p, p, p, p, i, i, i, i,
                                                    p, p]),
+                    ("hv_roofline_strip", i, [p, p, p, p, i, i, i, i, p, p]),
+                    ("hv_roofline_mxu", i, [i, p, p, i, i, i, i, p, p]),
                     ("hv_roofline_blocks_per_sm", i,
                      [i, i, i, i, ctypes.POINTER(i)])):
                 getattr(lib, fn).restype = restype

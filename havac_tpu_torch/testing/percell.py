@@ -6,7 +6,7 @@ the JAX functions lay it out, as a uint8 tensor on the inputs' device (a
 post-update state lies in [0, 255], so uint8 is exact, and a card-sized
 matrix never has to reach the host):
 
-  * ``dp_matrix_oracle`` — the numpy golden model, re-exported;
+  * ``dp_matrix_oracle`` — the numpy golden model (int32 numpy array);
   * ``dp_matrix_torch``  — the plain PyTorch sweep, filling the matrix row by
                            row;
   * ``dp_matrix_rows``   — the sweep kernel driven one model row per launch,
@@ -25,16 +25,31 @@ on tensors of either device.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import List
 
+import numpy as np
 import torch
 
-from havac_tpu.testing.percell import CellMismatch, dp_matrix_oracle
 from havac_tpu_torch.ops import ssv_cuda
+from havac_tpu_torch.ops.reference import ssv_reference
 from havac_tpu_torch.ops.ssv_torch import ssv_sweep_plain
 
 __all__ = ["CellMismatch", "compare_matrices", "dp_matrix_kernel",
            "dp_matrix_oracle", "dp_matrix_rows", "dp_matrix_torch"]
+
+
+def dp_matrix_oracle(symbols: np.ndarray, scores: np.ndarray) -> np.ndarray:
+    _, matrix = ssv_reference(symbols, scores, return_matrix=True)
+    return matrix
+
+
+@dataclass
+class CellMismatch:
+    row: int
+    position: int
+    expected: int
+    actual: int
 
 
 def _inputs(symbols, scores, init_carry=None, reset_rows=None):

@@ -15,8 +15,8 @@ from typing import List
 
 import numpy as np
 
-from havac_tpu.io.hmm import ProfileHmm, write_hmm
-from havac_tpu.testing.generator import model_from_consensus
+from havac_tpu_torch.io.hmm import ProfileHmm, write_hmm
+from havac_tpu_torch.testing.generator import model_from_consensus
 
 CHR22_LENGTH = 50_818_468
 FASTA_LINE = 80

@@ -17,13 +17,21 @@ Variants (the JAX tool's; see its docstring for what each prices):
       leanhit, nomatch, noroll, addonly, mulcost, andmatch;
   add chain on int8 / int16 (``roofline_add_chain``): add8, add16;
   full row update on int8 / int16 (``roofline_narrow_mix``): int8mix,
-      int16mix.
+      int16mix;
+  match precompute (``roofline_strip``): stripmatch, ``current`` with the
+      strip's K match planes built once a rep into shared memory;
+  match product (``roofline_mxu``): mxumatch (bf16) and mxumatch8 (int8),
+      the match words of each flush of 10 rows from one tensor-core product
+      (scores x one-hot), repacked into 10-bit fields.
 
-``stripmatch``, ``mxumatch`` and ``mxumatch8`` are not ported yet.
+The last two keep per-flush or per-rep planes in shared memory, so they
+take a smaller WS than the others: :func:`max_ws` (12 at K = 30).
+``mxumatch*`` need K a multiple of 10 (the JAX tool silently runs
+10 * (K // 10) rows and reports K).
 
 Usage::
 
-    python -m havac_tpu_torch.tools.roofline [--ws 64] [--rows 30]
+    python -m havac_tpu_torch.tools.roofline [--ws WS] [--rows 30]
         [--lo 64] [--hi 4160] [--iters 5] [--copies N]
         [--variants current perrow ...] [--device cuda|cpu] [--json out.json]
 
@@ -59,17 +67,24 @@ INT32_VARIANTS = ("current", "perrow", "leanhit", "nomatch", "noroll",
                   "addonly", "mulcost", "andmatch")
 ADD_VARIANTS = ("add8", "add16")
 MIX_VARIANTS = ("int8mix", "int16mix")
-VARIANTS = INT32_VARIANTS + ADD_VARIANTS + MIX_VARIANTS
-UNPORTED = ("stripmatch", "mxumatch", "mxumatch8")
+MXU_VARIANTS = ("mxumatch", "mxumatch8")
+VARIANTS = (INT32_VARIANTS + ADD_VARIANTS + MIX_VARIANTS + ("stripmatch",)
+            + MXU_VARIANTS)
 
-KERNELS = ("roofline_op_mix", "roofline_add_chain", "roofline_narrow_mix")
+KERNELS = ("roofline_op_mix", "roofline_add_chain", "roofline_narrow_mix",
+           "roofline_strip", "roofline_mxu")
 KERNEL_OF = {**dict.fromkeys(INT32_VARIANTS, KERNELS[0]),
              **dict.fromkeys(ADD_VARIANTS, KERNELS[1]),
-             **dict.fromkeys(MIX_VARIANTS, KERNELS[2])}
+             **dict.fromkeys(MIX_VARIANTS, KERNELS[2]),
+             "stripmatch": KERNELS[3],
+             **dict.fromkeys(MXU_VARIANTS, KERNELS[4])}
 ROOFLINE_LAUNCHES = dict.fromkeys(KERNELS, 0)  # CUDA launches per kernel
 
 MAX_WS = 64  # one instance per block: 512 threads of 16 words
 MAX_ROWS = 128
+# Variants whose shared memory grows with WS (the strip's planes, a flush's
+# product): the kernel library decides how large a WS fits a block.
+SMEM_VARIANTS = ("stripmatch",) + MXU_VARIANTS
 
 # Lower bounds on the integer instructions per 32-bit word and row that an
 # exact compile of each mix must issue, with Hopper's fusions (LOP3 takes any
@@ -81,23 +96,56 @@ MIN_OPS = {
     "leanhit": (10, 3), "nomatch": (8, 3), "andmatch": (12, 6),
     "addonly": (2, 1), "mulcost": (2, 1), "add8": (2, 1), "add16": (2, 1),
     "int8mix": (8, 5), "int16mix": (8, 5),
+    # stripmatch: `current` with the 3 match IMADs moved to the per-rep
+    # plane build (still 3 a word and row), the row keeping its add (1),
+    # SHF (1), bits (2), keep mask (2) and state (2); plus one 16-byte
+    # shared store (build) and load (row) per 4 words: 8 + 3 + 0.5.
+    "stripmatch": (11.5, 3),
+    # mxumatch8: the repack m0 + (m1 << 10) + (m2 << 20) + bias fuses into
+    # 2 IMADs and the row's add into an IADD3 (3), the rest of the row as
+    # `current` (7); three 16-byte shared loads per 4 words (0.75); the
+    # product, one mma per 8 columns, 3 columns a word, once in 10 rows
+    # (3/80). mxumatch adds 3 F2I conversions (f32 to int32) a word.
+    "mxumatch8": (10 + 0.75 + 3 / 80, 3),
+    "mxumatch": (13 + 0.75 + 3 / 80, 3),
 }
 INT32_LANES_PER_SM = 64  # INT32 pipe lanes per SM (Hopper)
 ISSUE_LANES_PER_SM = 128  # 4 schedulers x one 32-thread instruction a clock
 
 
 def _check_name(name: str) -> None:
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"variant {name!r} is not ported yet (ROADMAP Queue 1)")
     if name not in VARIANTS:
         raise ValueError(f"unknown variant {name!r}")
 
 
+def _check_rows(name: str, k: int) -> None:
+    if name in MXU_VARIANTS and k % ROWS_PER_FLUSH:
+        raise ValueError(f"{name} runs whole flushes of {ROWS_PER_FLUSH} "
+                         f"rows: K = {k} is not a multiple")
+
+
 def _dtype(name: str) -> torch.dtype:
-    if name in INT32_VARIANTS:
+    """The output's dtype (and the planes', but for ``mxumatch*``)."""
+    if name in INT32_VARIANTS or name == "stripmatch" or name in MXU_VARIANTS:
         return torch.int32
     return torch.int8 if name in ("add8", "int8mix") else torch.int16
+
+
+def _input_dtype(name: str) -> torch.dtype:
+    """The dtype of the planes (the one-hot for ``mxumatch*``) and, for
+    ``mxumatch*``, of the scores."""
+    return {"mxumatch": torch.bfloat16,
+            "mxumatch8": torch.int8}.get(name, _dtype(name))
+
+
+def _plane_shape(name: str, ws: int) -> tuple[int, ...]:
+    return (4, 3 * ws, 128) if name in MXU_VARIANTS else out_shape(name, ws)
+
+
+def _scores_shape(name: str, k: int) -> tuple[int, ...]:
+    if name in MXU_VARIANTS:
+        return (NS * (k // ROWS_PER_FLUSH), ROWS_PER_FLUSH, 4)
+    return (NS, k, 4)
 
 
 def out_shape(name: str, ws: int) -> tuple[int, int]:
@@ -108,7 +156,7 @@ def out_shape(name: str, ws: int) -> tuple[int, int]:
 
 def cells_per_rep(name: str, ws: int, k: int) -> int:
     """Cells one instance updates per rep (the JAX tool's count)."""
-    if name in INT32_VARIANTS:
+    if _dtype(name) == torch.int32:
         return k * 3 * ws * 128  # 3 cells per int32 word
     return k * out_shape(name, ws)[0] * 128
 
@@ -117,6 +165,11 @@ def layout(name: str) -> str:
     """The JAX tool's layout string."""
     if name in INT32_VARIANTS:
         return "3 cells / int32 lane"
+    if name == "stripmatch":
+        return "3 cells / int32 lane, strip planes"
+    if name in MXU_VARIANTS:
+        return ("3 cells / int32 lane, MXU match "
+                f"({'int8' if name == 'mxumatch8' else 'bf16'})")
     if name in ADD_VARIANTS:
         return f"1 elt / {_dtype(name).itemsize}-byte lane"
     return "4 cells / lane (int8)" if name == "int8mix" else \
@@ -127,7 +180,9 @@ def layout(name: str) -> str:
 class OpMixInputs:
     """One variant's inputs: the planes (i1, i2, i3; i1 alone for the add
     chains) in the output's shape and dtype, and the (NS, K, 4) int32
-    scores (None for the add chains)."""
+    scores (None for the add chains). ``mxumatch*`` take the (4, 3 WS, 128)
+    one-hot of the symbols as their one plane and (NS K / 10, 10, 4) scores,
+    both bf16 or int8."""
 
     name: str
     ws: int
@@ -144,12 +199,22 @@ def make_inputs(name: str, ws: int, k: int, device="cpu") -> OpMixInputs:
     """The inputs ``tools/roofline.py`` ``make_variant(name, ws, k)`` builds,
     from ``np.random.default_rng(0)`` in its order."""
     _check_name(name)
+    _check_rows(name, k)
     rng = np.random.default_rng(0)
     rows = out_shape(name, ws)[0]
     np_dt = {torch.int32: np.int32, torch.int16: np.int16,
              torch.int8: np.int8}[_dtype(name)]
     scores = None
-    if name in INT32_VARIANTS:
+    if name in MXU_VARIANTS:
+        sym3 = rng.integers(0, 4, size=(3 * ws, 128))
+        onehot = sym3[None] == np.arange(4)[:, None, None]
+        sc = rng.integers(-128, 128, size=_scores_shape(name, k))
+        dt = _input_dtype(name)  # both exact in bf16 and in int8
+        return OpMixInputs(
+            name, ws, k, (torch.from_numpy(onehot.astype(np.float32)).to(
+                dt).to(device),),
+            torch.from_numpy(sc.astype(np.float32)).to(dt).to(device))
+    if name in INT32_VARIANTS or name == "stripmatch":
         sym = rng.integers(0, 4, size=(ws, 128))
         # andmatch takes full-field indicator masks, the others bit 0.
         pbit = 0x3FFFFFFF if name == "andmatch" else FMASK
@@ -191,6 +256,18 @@ def initial_queue(k: int, device="cpu") -> torch.Tensor:
     return q
 
 
+def _row(state: torch.Tensor, bits: torch.Tensor, match: torch.Tensor,
+         cin) -> tuple[torch.Tensor, torch.Tensor]:
+    """``current``'s row update: roll with the seam stitch, biased add, bit-9
+    hit into ``bits``, keep mask."""
+    fm = FMASK
+    w = shift_stitch(state, cin) + match
+    t9 = w >> 9
+    bits = (bits << 1) | (t9 & fm)
+    kmask = (w >> 8) & ~t9 & fm
+    return w & (kmask * 255), bits
+
+
 def _plain_int32(x: OpMixInputs, reps: int) -> torch.Tensor:
     name, K = x.name, x.k
     i1, i2, i3 = x.planes
@@ -218,21 +295,21 @@ def _plain_int32(x: OpMixInputs, reps: int) -> torch.Tensor:
                 else:
                     match = (i1 * _i32(m1 - m0) + i2 * _i32(m2 - m0)
                              + i3 * _i32(m3 - m0) + c)
-                if name == "noroll":
-                    w = state + match
-                else:
-                    cin = q[rslot, k] if q is not None else 7
-                    w = shift_stitch(state, cin) + match
+                cin = q[rslot, k] if q is not None else 7
                 if name == "leanhit":
+                    w = shift_stitch(state, cin) + match
                     b9 = w & (fm << 9)
                     bits = (bits >> 1) | b9
                     keep = (w & (fm << 8)) & ~(b9 >> 1)
                     state = w & (keep - (keep >> 8))
-                else:
+                elif name == "noroll":
+                    w = state + match
                     t9 = w >> 9
                     bits = (bits << 1) | (t9 & fm)
                     kmask = (w >> 8) & ~t9 & fm
                     state = w & (kmask * 255)
+                else:
+                    state, bits = _row(state, bits, match, cin)
                 if q is not None:  # the per-row scalar side
                     q[1 - rslot, k + 1] = state.view(-1)[-1] >> 20
             if (k + 1) % ROWS_PER_FLUSH == 0:
@@ -276,14 +353,56 @@ def _plain_narrow_mix(x: OpMixInputs, reps: int) -> torch.Tensor:
     return state + bits + acc
 
 
+def _plain_strip(x: OpMixInputs, reps: int) -> torch.Tensor:
+    i1, i2, i3 = x.planes
+    sc = x.scores.tolist()
+    state, bits, acc = i1.clone(), torch.zeros_like(i1), torch.zeros_like(i1)
+    for r in range(reps):
+        planes = [_i32(m0 * FMASK) + i1 * _i32(m1 - m0) + i2 * _i32(m2 - m0)
+                  + i3 * _i32(m3 - m0) for m0, m1, m2, m3 in sc[r % NS]]
+        for k in range(x.k):  # the hot loop: the match is a plane
+            state, bits = _row(state, bits, planes[k], 7)
+            if (k + 1) % ROWS_PER_FLUSH == 0:
+                acc = acc ^ bits
+                bits = torch.zeros_like(state)
+    return state + bits + acc
+
+
+def _plain_mxu(x: OpMixInputs, reps: int) -> torch.Tensor:
+    ws, nf = x.ws, x.k // ROWS_PER_FLUSH
+    # The product in float64: every sum is a small integer, so it is exact,
+    # as the kernel's f32 / int32 accumulator is.
+    onehot = x.planes[0].to(torch.float64).reshape(4, -1)
+    scores = x.scores.to(torch.float64)
+    state = torch.zeros((ws, 128), dtype=torch.int32, device=onehot.device)
+    bits, acc = torch.zeros_like(state), torch.zeros_like(state)
+    bias = 256 * FMASK
+    for r in range(reps):
+        for f in range(nf):
+            mdot = (scores[(r % NS) * nf + f] @ onehot).to(torch.int32)
+            mdot = mdot.reshape(ROWS_PER_FLUSH, 3 * ws, 128)
+            for k in range(ROWS_PER_FLUSH):
+                m0, m1, m2 = mdot[k, :ws], mdot[k, ws:2 * ws], mdot[k, 2 * ws:]
+                match = m0 + (m1 << 10) + (m2 << 20) + bias
+                state, bits = _row(state, bits, match, 7)
+            acc = acc ^ bits
+            bits = torch.zeros_like(state)
+    return state + bits + acc
+
+
 def op_mix_plain(name: str, inputs: OpMixInputs, reps: int) -> torch.Tensor:
     """The plain PyTorch version of variant ``name``: what the TPU kernel's
     ``out_ref`` holds after ``reps`` reps, on the inputs' device."""
     _check_name(name)
     if name != inputs.name:
         raise ValueError(f"inputs are {inputs.name!r}'s, not {name!r}'s")
+    _check_rows(name, inputs.k)
     if name in INT32_VARIANTS:
         return _plain_int32(inputs, reps)
+    if name == "stripmatch":
+        return _plain_strip(inputs, reps)
+    if name in MXU_VARIANTS:
+        return _plain_mxu(inputs, reps)
     if name in ADD_VARIANTS:
         return _plain_add(inputs, reps)
     return _plain_narrow_mix(inputs, reps)
@@ -291,14 +410,47 @@ def op_mix_plain(name: str, inputs: OpMixInputs, reps: int) -> torch.Tensor:
 
 # ---------------------------------------------------------------- kernels
 
-def check_kernel_shape(ws: int, k: int) -> None:
-    """Raise unless the kernels hold a (ws, 128) buffer at K = k: one
-    instance per block of ws * 8 threads, 16 words in registers each."""
-    if not (4 <= ws <= MAX_WS and ws % 4 == 0):
-        raise ValueError(f"--ws {ws}: the CUDA kernels hold WS in 4..{MAX_WS}"
-                         f", a multiple of 4 (one instance per block)")
+def _occupancy(name: str, ws: int, k: int) -> int:
+    """The library's resident blocks per SM of the variant's kernel at
+    (ws, k); 0 where a block of that shape does not fit the SM (its shared
+    memory above what a block may use)."""
+    kernel = KERNELS.index(KERNEL_OF[name])
+    which = (INT32_VARIANTS.index(name) if kernel == 0
+             else _input_dtype(name).itemsize)
+    n = ctypes.c_int(0)
+    lib = ssv_cuda.load_library()
+    rc = lib.hv_roofline_blocks_per_sm(kernel, which, ws, k, ctypes.byref(n))
+    return n.value if rc == 0 else 0
+
+
+def max_ws(name: str, k: int = 30) -> int:
+    """The largest WS the variant's kernel takes at K = k: MAX_WS, or for
+    ``stripmatch`` / ``mxumatch*`` the largest multiple of 4 whose planes
+    fit a block's shared memory, as the kernel library reports it for the
+    current card (12 at K = 30 on an H100)."""
+    _check_name(name)
+    _check_rows(name, k)
+    if name not in SMEM_VARIANTS:
+        return MAX_WS
+    for ws in range(MAX_WS, 3, -4):
+        if _occupancy(name, ws, k) >= 1:
+            return ws
+    raise ValueError(f"{name}: no WS fits a block at K = {k}")
+
+
+def check_kernel_shape(ws: int, k: int, name: str = "current") -> None:
+    """Raise unless the variant's kernel holds a (ws, 128) buffer at K = k:
+    one instance per block of ws * 8 threads, 16 words in registers each,
+    WS at most :func:`max_ws`."""
+    _check_name(name)
     if not 1 <= k <= MAX_ROWS:
         raise ValueError(f"--rows {k}: the CUDA kernels take 1..{MAX_ROWS}")
+    _check_rows(name, k)
+    top = max_ws(name, k) if 4 <= ws <= MAX_WS else MAX_WS
+    if not (4 <= ws <= top and ws % 4 == 0):
+        raise ValueError(f"--ws {ws}: the CUDA kernel of {name} holds WS in "
+                         f"4..{top} at K = {k}, a multiple of 4 (one "
+                         f"instance per block)")
 
 
 def _check(x: OpMixInputs, reps: int, copies: int) -> None:
@@ -307,18 +459,21 @@ def _check(x: OpMixInputs, reps: int, copies: int) -> None:
             raise ValueError(msg)
 
     need(reps >= 0 and copies >= 1, "reps must be >= 0 and copies >= 1")
-    shape, dt = out_shape(x.name, x.ws), _dtype(x.name)
-    need(len(x.planes) == (1 if x.name in ADD_VARIANTS else 3),
-         "wrong number of planes")
+    _check_rows(x.name, x.k)
+    shape, dt = _plane_shape(x.name, x.ws), _input_dtype(x.name)
+    need(len(x.planes) == (1 if x.name in ADD_VARIANTS + MXU_VARIANTS
+                           else 3), "wrong number of planes")
     for p in x.planes:
         need(p.dtype == dt and tuple(p.shape) == shape,
              f"planes must be {dt} {shape}")
     if x.name in ADD_VARIANTS:
         need(x.scores is None, "the add chains take no scores")
     else:
-        need(x.scores is not None and x.scores.dtype == torch.int32
-             and tuple(x.scores.shape) == (NS, x.k, 4),
-             f"scores must be int32 ({NS}, {x.k}, 4)")
+        sdt = dt if x.name in MXU_VARIANTS else torch.int32
+        sshape = _scores_shape(x.name, x.k)
+        need(x.scores is not None and x.scores.dtype == sdt
+             and tuple(x.scores.shape) == sshape,
+             f"scores must be {sdt} {sshape}")
     tensors = [*x.planes] + ([] if x.scores is None else [x.scores])
     for t in tensors:
         need(t.device == x.device, "all tensors must be on one device")
@@ -339,7 +494,7 @@ def op_mix(inputs: OpMixInputs, reps: int, copies: int = 1) -> torch.Tensor:
             copies, 1, 1)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    check_kernel_shape(inputs.ws, inputs.k)
+    check_kernel_shape(inputs.ws, inputs.k, name)
     out = torch.empty((copies, *out_shape(name, inputs.ws)),
                       dtype=_dtype(name), device=dev)
     lib = ssv_cuda.load_library()
@@ -354,6 +509,12 @@ def op_mix(inputs: OpMixInputs, reps: int, copies: int = 1) -> torch.Tensor:
                                         *shape)
         elif kernel == "roofline_add_chain":
             rc = lib.hv_roofline_add_chain(out.element_size(), *ptrs, *shape)
+        elif kernel == "roofline_strip":
+            rc = lib.hv_roofline_strip(inputs.scores.data_ptr(), *ptrs,
+                                       *shape)
+        elif kernel == "roofline_mxu":
+            rc = lib.hv_roofline_mxu(_input_dtype(name).itemsize,
+                                     inputs.scores.data_ptr(), *ptrs, *shape)
         else:
             rc = lib.hv_roofline_narrow_mix(out.element_size(),
                                             inputs.scores.data_ptr(), *ptrs,
@@ -367,16 +528,11 @@ def op_mix(inputs: OpMixInputs, reps: int, copies: int = 1) -> torch.Tensor:
 
 def blocks_per_sm(name: str, ws: int, k: int) -> int:
     """Resident blocks per SM of the variant's kernel (CUDA occupancy)."""
-    check_kernel_shape(ws, k)
-    kernel = KERNELS.index(KERNEL_OF[name])
-    which = (INT32_VARIANTS.index(name) if kernel == 0
-             else _dtype(name).itemsize)
-    n = ctypes.c_int(0)
-    lib = ssv_cuda.load_library()
-    rc = lib.hv_roofline_blocks_per_sm(kernel, which, ws, k, ctypes.byref(n))
-    if rc != 0 or n.value < 1:
-        raise RuntimeError(f"occupancy query failed for {name} (rc {rc})")
-    return n.value
+    check_kernel_shape(ws, k, name)
+    n = _occupancy(name, ws, k)
+    if n < 1:
+        raise RuntimeError(f"occupancy query failed for {name}")
+    return n
 
 
 # ---------------------------------------------------------------- timing
@@ -434,13 +590,21 @@ class Card:
                     torch.cuda.get_device_properties(device)
                     .multi_processor_count, float(mhz))
 
-    def issue_shares(self, name: str, words_per_second: float):
-        """(all ops / the schedulers' 128 lanes, logic ops / the INT32
-        pipe's 64 lanes) at the variant's lower-bound op counts."""
+    def op_seconds(self, name: str, words: float):
+        """The least seconds the card takes for ``words`` word-rows of the
+        variant at its lower-bound op counts and the maximum clock: (all
+        ops over the schedulers' 128 lanes, logic ops over the INT32 pipe's
+        64 lanes)."""
         total, logic = MIN_OPS[name]
         clk = self.sms * self.max_sm_mhz * 1e6
-        return (total * words_per_second / (ISSUE_LANES_PER_SM * clk),
-                logic * words_per_second / (INT32_LANES_PER_SM * clk))
+        return (total * words / (ISSUE_LANES_PER_SM * clk),
+                logic * words / (INT32_LANES_PER_SM * clk))
+
+    def issue_shares(self, name: str, words_per_second: float):
+        """The shares of the card's issue and INT32 rates that a rate of
+        ``words_per_second`` needs: :meth:`op_seconds` of one second's
+        words."""
+        return self.op_seconds(name, words_per_second)
 
 
 def run_variant(name: str, ws: int, k: int, lo: int, hi: int, iters: int,
@@ -455,7 +619,7 @@ def run_variant(name: str, ws: int, k: int, lo: int, hi: int, iters: int,
     if sec <= 0:
         raise RuntimeError(f"{name}: t(hi) {t_hi} <= t(lo) {t_lo}")
     cells = cells_per_rep(name, ws, k)
-    res = {"sec_per_rep": sec, "t_lo": t_lo, "t_hi": t_hi,
+    res = {"ws": ws, "sec_per_rep": sec, "t_lo": t_lo, "t_hi": t_hi,
            "gcups_equiv": cells / sec / 1e9, "layout": layout(name),
            "copies": copies, "gcups_equiv_card": copies * cells / sec / 1e9}
     if card is not None:
@@ -472,8 +636,10 @@ def run_variant(name: str, ws: int, k: int, lo: int, hi: int, iters: int,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--ws", type=int, default=MAX_WS,
-                    help="sublane rows of the (WS, 128) buffer")
+    ap.add_argument("--ws", type=int, default=None,
+                    help="sublane rows of the (WS, 128) buffer (default: "
+                         "each variant's max_ws on cuda, 64 or 12 at K = "
+                         "30; 64 on cpu)")
     ap.add_argument("--rows", type=int, default=30,
                     help="rows per rep (K)")
     ap.add_argument("--lo", type=int, default=None,
@@ -505,12 +671,13 @@ def main(argv=None) -> int:
     results = {}
     for name in args.variants:
         _check_name(name)
+        ws = args.ws or (max_ws(name, args.rows) if cuda else MAX_WS)
         copies = args.copies or (
-            card.sms * blocks_per_sm(name, args.ws, args.rows) if cuda else 1)
-        r = run_variant(name, args.ws, args.rows, lo, hi, args.iters, device,
+            card.sms * blocks_per_sm(name, ws, args.rows) if cuda else 1)
+        r = run_variant(name, ws, args.rows, lo, hi, args.iters, device,
                         copies, card)
         results[name] = r
-        print(f"{name:10s} {r['sec_per_rep'] * 1e6:12.4f} us/rep "
+        print(f"{name:10s} WS {ws:2d} {r['sec_per_rep'] * 1e6:12.4f} us/rep "
               f"{r['gcups_equiv']:10.3f} GCUPS-equiv x {copies} = "
               f"{r['gcups_equiv_card']:10.2f} on the card   [{r['layout']}] "
               f"(t_lo={r['t_lo'] * 1e3:.4f} ms t_hi={r['t_hi'] * 1e3:.4f} ms)",

@@ -22,6 +22,7 @@ from havac_tpu.engine import cli as jax_cli
 from havac_tpu.io.hmm import write_hmm
 from havac_tpu.ops.common import SsvKernelConfig
 from havac_tpu.testing.generator import generate_planted_fixture
+from havac_tpu_torch.convert import profile_hmms_from_reference
 from havac_tpu_torch.engine import Havac, HavacUsageError
 from havac_tpu_torch.engine import cli
 from havac_tpu_torch.engine.api import SCAN_PRODUCER_THREAD
@@ -94,8 +95,9 @@ def test_scan_files_amino_matches_per_file_runs(tmp_path):
             seed=5 + i, model_length=30, sequence_length=1200,
             num_models=2, alphabet="amino")
         paths.append(write_fasta(tmp_path / f"a{i}.fasta", recs))
-    ours = Havac(p_value=0.02, device="cpu").load_phmm(models)
-    got = list(ours.scan_files(paths))
+    ours = Havac(p_value=0.02, device="cpu")
+    got = list(ours.load_phmm(profile_hmms_from_reference(models))
+               .scan_files(paths))
     assert ours.alphabet == "amino" and ours.database.alphabet == "amino"
     assert sum(len(h) for _, h in got) > 0
     swar = SsvKernelConfig(block_width=3072, rows_per_strip=30, packing=3,

@@ -12,7 +12,10 @@ from havac_tpu.ops.common import SsvKernelConfig
 from havac_tpu.ops.ssv_swar import pack_state, unpack_state
 from havac_tpu.testing.generator import generate_planted_fixture
 from havac_tpu_torch.convert import (checkpoint_from_reference,
-                                     from_reference_engine, state_from_swar)
+                                     database_from_reference,
+                                     from_reference_engine,
+                                     profile_hmms_from_reference,
+                                     state_from_swar)
 from havac_tpu_torch.engine import Havac
 
 P_VALUE = 0.05
@@ -98,7 +101,8 @@ def test_jax_checkpoint_resumes_in_the_port(tmp_path):
 
     ours = Havac(p_value=P_VALUE, device="cpu", pad_multiple=1024,
                  chunk_symbols=1024, chunk_rows=48, checkpoint_path=ckpt)
-    ours.load_phmm(models).load_sequence(db)
+    ours.load_phmm(profile_hmms_from_reference(models))
+    ours.load_sequence(database_from_reference(db))
     assert ours._fingerprint(3072, 48, 1024, 48) == fingerprint
     ours.run()
     assert ours.resumed_chunks == 1

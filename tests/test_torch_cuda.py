@@ -11,10 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from havac_tpu.testing.generator import generate_planted_fixture
 from havac_tpu_torch.engine import Havac
 from havac_tpu_torch.ops import ssv_cuda
 from havac_tpu_torch.ops.ssv_torch import ssv_sweep_plain
+from havac_tpu_torch.testing.generator import generate_planted_fixture
 from havac_tpu_torch.testing.percell import (dp_matrix_kernel, dp_matrix_rows,
                                              dp_matrix_torch)
 from havac_tpu_torch.tools import roofline
@@ -131,7 +131,7 @@ def test_percell_functions_on_the_card(dev):
 
 
 def test_scan_files_cuda_matches_cpu(dev, tmp_path):
-    from havac_tpu.io.hmm import write_hmm
+    from havac_tpu_torch.io.hmm import write_hmm
 
     models, _ = generate_planted_fixture(seed=23, model_length=40,
                                          sequence_length=10, num_models=3)
@@ -155,12 +155,15 @@ def test_scan_files_cuda_matches_cpu(dev, tmp_path):
 
 
 @pytest.mark.parametrize("name", roofline.VARIANTS)
-@pytest.mark.parametrize("ws", [8, roofline.MAX_WS])
+@pytest.mark.parametrize("ws", ["8", "max"])
 def test_roofline_kernels_match_plain(dev, name, ws):
-    """Every copy of roofline_op_mix / add_chain / narrow_mix equals the
-    plain version exactly (zero tolerance), at reps 0-3 and K = 30 and 7."""
+    """Every copy of every roofline kernel equals the plain version exactly
+    (zero tolerance), at reps 0-3, at WS 8 and at the variant's maximum WS
+    (64, or 12 for stripmatch / mxumatch*), K = 30 and 7 (10 for
+    mxumatch*, which run whole flushes)."""
     kernel = roofline.KERNEL_OF[name]
-    for k in (30, 7):
+    ws = 8 if ws == "8" else roofline.max_ws(name, 30)
+    for k in (30, 10 if name in roofline.MXU_VARIANTS else 7):
         x = roofline.make_inputs(name, ws, k, dev)
         for reps in range(4):
             before = roofline.ROOFLINE_LAUNCHES[kernel]
@@ -178,3 +181,12 @@ def test_roofline_kernel_refuses_what_it_cannot_hold(dev):
     with pytest.raises(ValueError, match="--ws 96"):
         roofline.op_mix(x, 1)
     assert roofline.blocks_per_sm("current", roofline.MAX_WS, 30) >= 1
+    # The library's shared-memory sizes against the card's 232,448 B a
+    # block: the planes of stripmatch and a flush's product of mxumatch*.
+    assert roofline.max_ws("stripmatch", 10) == 44
+    for name in ("stripmatch", *roofline.MXU_VARIANTS):
+        top = roofline.max_ws(name, 30)
+        assert top == 12
+        with pytest.raises(ValueError, match=f"--ws {top + 4}"):
+            roofline.op_mix(roofline.make_inputs(name, top + 4, 30, dev), 1)
+        assert roofline.blocks_per_sm(name, top, 30) >= 1

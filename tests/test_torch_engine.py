@@ -18,6 +18,8 @@ from havac_tpu.engine import Havac as JaxHavac
 from havac_tpu.io.fasta import load_fasta_database, reverse_complement
 from havac_tpu.ops.common import SsvKernelConfig
 from havac_tpu.testing.generator import generate_planted_fixture
+from havac_tpu_torch.convert import database_from_reference as port_db
+from havac_tpu_torch.convert import profile_hmms_from_reference as port_models
 from havac_tpu_torch.engine import Havac, HavacRunState, HavacUsageError
 
 P_VALUE = 0.05
@@ -54,7 +56,7 @@ def planted():
     ref = JaxHavac(p_value=P_VALUE, config=CFG, backend="xla")
     ref.load_phmm(models).load_sequence(db).run()
     assert len(ref.hits()) > 0
-    return models, db, ref
+    return port_models(models), port_db(db), ref  # the port's objects
 
 
 @pytest.mark.parametrize("chunks", [(1 << 24, 8160), (700, 40), (999, 1),
@@ -83,7 +85,7 @@ def test_chunked_jax_run_matches_uneven_port_cuts():
                    chunk_symbols=2048, chunk_rows=48)
     ref.load_phmm(models).load_sequence(db).run()
     ours = port(chunk_symbols=1777, chunk_rows=37)
-    ours.load_phmm(models).load_sequence(db).run()
+    ours.load_phmm(port_models(models)).load_sequence(port_db(db)).run()
     assert ours.stats.num_chunks == 4 * 4
     assert_same_run(ours, ref)
 
@@ -96,7 +98,7 @@ def test_multi_sequence_resolution_matches_jax():
     ref = JaxHavac(p_value=P_VALUE, config=CFG, backend="xla")
     ref.load_phmm(models).load_sequence(fasta_text(recs), is_text=True).run()
     ours = port(chunk_symbols=600)
-    ours.load_phmm(models).load_sequence(fasta_text(recs), is_text=True).run()
+    ours.load_phmm(port_models(models)).load_sequence(fasta_text(recs), is_text=True).run()
     assert_same_run(ours, ref)
     assert set(ours.hits().sequence_index.tolist()) <= {0, 1, 2}
 
@@ -109,7 +111,7 @@ def test_both_strands_match_jax():
     ref = JaxHavac(p_value=P_VALUE, config=CFG, backend="xla", strand="both")
     ref.load_phmm(models).load_sequence(fasta, is_text=True).run()
     ours = port(strand="both", chunk_symbols=900)
-    ours.load_phmm(models).load_sequence(fasta, is_text=True).run()
+    ours.load_phmm(port_models(models)).load_sequence(fasta, is_text=True).run()
     assert (ours.hits().strand == "-").sum() > 0
     assert_same_run(ours, ref)
 
@@ -122,11 +124,11 @@ def test_isolate_models_matches_jax():
                    isolate_models=True)
     ref.load_phmm(models).load_sequence(fasta, is_text=True).run()
     ours = port(isolate_models=True, chunk_symbols=1500, chunk_rows=50)
-    ours.load_phmm(models).load_sequence(fasta, is_text=True).run()
+    ours.load_phmm(port_models(models)).load_sequence(fasta, is_text=True).run()
     assert ours.reset_rows.sum() == 3
     assert_same_run(ours, ref)
     joined = port(chunk_symbols=1500, chunk_rows=50)
-    joined.load_phmm(models).load_sequence(fasta, is_text=True).run()
+    joined.load_phmm(port_models(models)).load_sequence(fasta, is_text=True).run()
     assert len(joined.hits()) >= len(ours.hits())
 
 
@@ -145,7 +147,7 @@ def test_amino_matches_jax():
     ref.load_phmm(models).load_sequence(fasta, is_text=True).run()
     ours = port(p_value=0.02, pad_multiple=3072, chunk_symbols=1000,
                 chunk_rows=25)
-    ours.load_phmm(models).load_sequence(fasta, is_text=True).run()
+    ours.load_phmm(port_models(models)).load_sequence(fasta, is_text=True).run()
     assert ours.alphabet == "amino" and ours.database.alphabet == "amino"
     assert len(ours.hits()) > 0
     assert_same_run(ours, ref)
@@ -257,6 +259,7 @@ def test_usage_errors():
     am_models, _ = generate_planted_fixture(seed=2, model_length=16,
                                             sequence_length=512,
                                             alphabet="amino")
+    models, am_models = port_models(models), port_models(am_models)
     eng = Havac(device="cpu")
     assert eng.state == HavacRunState.IDLE and eng.backend == "torch"
     with pytest.raises(HavacUsageError):
@@ -290,7 +293,7 @@ def test_usage_errors():
     with pytest.raises(HavacUsageError, match="cardinality 7"):
         Havac(device="cpu").load_phmm([Stub()])
     amino = Havac(device="cpu").load_phmm(am_models)
-    dna_db = load_fasta_database(fasta_text(records), is_text=True)
+    dna_db = port_db(load_fasta_database(fasta_text(records), is_text=True))
     with pytest.raises(HavacUsageError, match="alphabet"):
         amino.load_sequence(dna_db)
 

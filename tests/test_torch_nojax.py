@@ -1,7 +1,9 @@
-"""The port runs without JAX: a CPU search, a multi-file scan, a per-cell
-dump and the op-mix roofline in a fresh interpreter leave `jax` out of
-sys.modules."""
+"""The port runs without JAX and without the JAX package: a CPU search, a
+multi-file scan, a per-cell dump and the op-mix roofline in a fresh
+interpreter leave `jax` and `havac_tpu` out of sys.modules; and no module
+of the port, nor `chip_smoke.py`, names either in an import."""
 
+import ast
 import json
 import os
 import subprocess
@@ -12,7 +14,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = r"""
 import json, sys
 import havac_tpu_torch
-from havac_tpu.testing.generator import generate_planted_fixture
+from havac_tpu_torch.testing.generator import generate_planted_fixture
 from havac_tpu_torch.engine import Havac
 
 models, records = generate_planted_fixture(seed=7, model_length=40,
@@ -40,7 +42,10 @@ mix = roofline.op_mix(roofline.make_inputs("perrow", 4, 10), 2, copies=2)
 print(json.dumps({"hits": len(engine.hits()), "scanned": scanned,
                   "cells": matrix.numel(), "roofline": list(mix.shape),
                   "jax": sorted(m for m in sys.modules
-                                if m == "jax" or m.startswith("jax."))}))
+                                if m == "jax" or m.startswith("jax.")),
+                  "havac_tpu": sorted(m for m in sys.modules
+                                      if m == "havac_tpu"
+                                      or m.startswith("havac_tpu."))}))
 """
 
 
@@ -57,3 +62,42 @@ def test_port_search_imports_no_jax(tmp_path):
     assert out["cells"] == 9 * 300
     assert out["roofline"] == [2, 4, 128]
     assert out["jax"] == []
+    assert out["havac_tpu"] == []
+
+
+def _imported_roots(path):
+    """Top-level packages named by every import statement in ``path``."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+def _port_sources():
+    pkg = os.path.join(ROOT, "havac_tpu_torch")
+    for d, _, files in os.walk(pkg):
+        for name in sorted(files):
+            if name.endswith(".py"):
+                yield os.path.join(d, name)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_port_sources_import_neither_jax_nor_the_jax_package():
+    sources = list(_port_sources())
+    assert len(sources) > 30
+    bad = [f"{os.path.relpath(p, ROOT)}:{line} imports {root}"
+           for p in sources for root, line in _imported_roots(p)
+           if root in ("jax", "jaxlib", "havac_tpu")]
+    assert bad == []
+
+
+def test_import_walk_sees_a_jax_package_import(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("def f():\n    from havac_tpu.io import hmm\n"
+                     "import jax.numpy as jnp\n")
+    assert sorted(_imported_roots(str(probe))) == [("havac_tpu", 2),
+                                                    ("jax", 3)]

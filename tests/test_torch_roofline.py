@@ -1,10 +1,10 @@
 """The port's op-mix roofline (`havac_tpu_torch/tools/roofline.py`) against
 the JAX tool `tools/roofline.py`.
 
-For each of the 12 ported variants, the plain PyTorch version on the inputs
+For each of the 15 variants, the plain PyTorch version on the inputs
 `make_inputs` builds equals the JAX tool's Pallas kernel, run in interpret
-mode at WS = 8, K = 30, word for word and in dtype and shape: the tolerance
-is zero. The CUDA kernels are held to the same plain versions on the card
+mode at WS = 8, K = 30 (and K = 10 for the match-precompute variants), word
+for word and in dtype and shape: the tolerance is zero. The CUDA kernels are held to the same plain versions on the card
 (`tests/test_torch_cuda.py`, `chip_smoke.py`).
 """
 
@@ -94,20 +94,57 @@ def test_perrow_queue_starts_at_int32_min():
         R.op_mix_plain("current", R.make_inputs("current", WS, 1), 3))
 
 
-@pytest.mark.parametrize("name", R.UNPORTED)
-def test_unported_variants_raise(name):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        R.make_inputs(name, WS, K)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        R.op_mix_plain(name, R.make_inputs("current", WS, K), 1)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        R.main(["--device", "cpu", "--ws", "8", "--variants", name])
+MATCH_PRECOMPUTE = ("stripmatch", "mxumatch", "mxumatch8")
+
+
+@pytest.mark.parametrize("name", MATCH_PRECOMPUTE)
+@pytest.mark.parametrize("k", [10, 30])
+@pytest.mark.parametrize("reps", [0, 1, 2, 3])
+def test_match_precompute_plain_equals_jax_tool(name, k, reps):
+    """stripmatch (the strip's planes, then the hot loop) and mxumatch /
+    mxumatch8 (one product a flush, repacked) at one and three flushes."""
+    want = jax_out(name, reps, k=k)
+    got = R.op_mix_plain(name, R.make_inputs(name, WS, k), reps).numpy()
+    assert got.dtype == want.dtype == np.int32 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_mxumatch_needs_whole_flushes():
+    """The JAX tool runs 10 * (K // 10) rows and reports K rows of cells: at
+    K = 15 its output is the port's at K = 10 (the same inputs). The port
+    refuses such a K."""
+    np.testing.assert_array_equal(
+        jax_out("mxumatch8", 2, k=15),
+        R.op_mix_plain("mxumatch8", R.make_inputs("mxumatch8", WS, 10),
+                       2).numpy())
+    assert jax_runner("mxumatch8", WS, 15)[1] == R.cells_per_rep(
+        "mxumatch8", WS, 15) == 15 * 3 * WS * 128
+    for name in R.MXU_VARIANTS:
+        for k in (7, 25):
+            with pytest.raises(ValueError, match="multiple"):
+                R.make_inputs(name, WS, k)
+            with pytest.raises(ValueError, match="multiple"):
+                R.check_kernel_shape(WS, k, name)
+        with pytest.raises(ValueError, match="multiple"):
+            R.main(["--device", "cpu", "--ws", "8", "--rows", "7",
+                    "--variants", name])
+        x = R.make_inputs(name, WS, 10)
+        with pytest.raises(ValueError, match="multiple"):
+            R.op_mix_plain(name, R.OpMixInputs(name, WS, 7, x.planes,
+                                               x.scores), 1)
+
+
+def test_unknown_variants_raise():
+    with pytest.raises(ValueError, match="unknown variant"):
+        R.make_inputs("bogus", WS, K)
+    with pytest.raises(ValueError, match="unknown variant"):
+        R.main(["--device", "cpu", "--ws", "8", "--variants", "bogus"])
 
 
 def test_wrapper_takes_the_plain_version_on_cpu():
     before = dict(R.ROOFLINE_LAUNCHES)
-    for name in ("perrow", "add16", "int8mix"):
-        x = R.make_inputs(name, WS, 12)
+    for name in ("perrow", "add16", "int8mix", "stripmatch", "mxumatch8"):
+        x = R.make_inputs(name, WS, 10 if name in R.MXU_VARIANTS else 12)
         out = R.op_mix(x, 2, copies=3)
         assert out.shape == (3, *R.out_shape(name, WS))
         for c in range(3):
@@ -130,11 +167,28 @@ def test_wrapper_checks_inputs_and_kernel_shapes():
     for ws, k in ((336, K), (6, K), (0, K), (8, 0), (8, R.MAX_ROWS + 1)):
         with pytest.raises(ValueError):
             R.check_kernel_shape(ws, k)
+    mx = R.OpMixInputs("mxumatch", WS, K, (x.planes[0],), x.scores)
+    with pytest.raises(ValueError, match="planes"):
+        R.op_mix(mx, 1)
+
+
+def test_only_the_match_precompute_ws_asks_the_kernel_library():
+    """The planes of stripmatch and the product of mxumatch* live in shared
+    memory, so the kernel library caps their WS on the card
+    (tests/test_torch_cuda.py); the other variants keep WS 64 without
+    asking it."""
+    assert set(R.SMEM_VARIANTS) == set(MATCH_PRECOMPUTE)
+    for name in R.VARIANTS:
+        if name not in R.SMEM_VARIANTS:
+            assert R.max_ws(name, K) == R.MAX_WS
+            R.check_kernel_shape(R.MAX_WS, K, name)
+            with pytest.raises(ValueError, match=f"--ws {R.MAX_WS + 4}"):
+                R.check_kernel_shape(R.MAX_WS + 4, K, name)
 
 
 def test_cli_on_cpu(tmp_path):
     out = tmp_path / "roofline.json"
-    names = ["current", "add8", "int16mix"]
+    names = ["current", "add8", "int16mix", "stripmatch", "mxumatch8"]
     assert R.main(["--device", "cpu", "--ws", "8", "--rows", "10", "--lo",
                    "0", "--hi", "8", "--iters", "2", "--variants", *names,
                    "--json", str(out)]) == 0
@@ -144,9 +198,46 @@ def test_cli_on_cpu(tmp_path):
     for name, r in report["results"].items():
         assert r["sec_per_rep"] > 0 and r["t_hi"] > r["t_lo"]
         assert r["layout"] == R.layout(name) and r["copies"] == 1
+        assert r["ws"] == 8
         assert r["gcups_equiv"] == pytest.approx(
             R.cells_per_rep(name, 8, 10) / r["sec_per_rep"] / 1e9)
         assert r["gcups_equiv_card"] == pytest.approx(r["gcups_equiv"])
+    # Without --ws the plain versions run at WS 64 (no shared memory caps
+    # them; on cuda each variant takes its max_ws).
+    assert R.main(["--device", "cpu", "--rows", "10", "--lo", "0", "--hi",
+                   "1", "--iters", "1", "--variants", "stripmatch",
+                   "--json", str(out)]) == 0
+    report = json.loads(out.read_text())
+    assert report["ws"] is None
+    assert report["results"]["stripmatch"]["ws"] == R.MAX_WS
+
+
+SASS = """\
+\tcode for sm_90a
+\t\tFunction : _Z3rowPi
+        /*0000*/                   MOV R1, c[0x0][0x28] ;   /* 0x0 */
+.L_x_1:
+        /*0010*/                   LDS.128 R4, [R2] ;       /* 0x0 */
+        /*0020*/                   IMAD R5, R5, R6, R7 ;    /* 0x0 */
+        /*0030*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;  /* 0x0 */
+        /*0040*/                   HMMA.16816.F32.BF16 R8, R4, R6, RZ ;
+        /*0050*/               @P0 BRA `(.L_x_1) ;          /* 0x0 */
+        /*0060*/                   LOP3.LUT R5, R5, 0x3, RZ, 0xc0, !PT ;
+        /*0070*/               @P1 BRA 0x20 ;               /* 0x0 */
+        /*0080*/                   EXIT ;                   /* 0x0 */
+"""
+
+
+def test_sass_loops_are_the_backward_branches():
+    from havac_tpu_torch.tools import sass
+
+    kernels = sass.parse(SASS)
+    assert list(kernels) == ["_Z3rowPi"]
+    assert len(kernels["_Z3rowPi"]["insns"]) == 9
+    (s1, e1, c1, n1), (s2, e2, c2, n2) = sass.loops(kernels["_Z3rowPi"])
+    assert (s1, e1, n1) == (0x10, 0x50, 5)
+    assert (c1["lds"], c1["int"], c1["bar"], c1["mma"]) == (1, 1, 1, 1)
+    assert (s2, e2, n2) == (0x20, 0x70, 6) and c2["int"] == 2
 
 
 def test_cli_cuda_without_a_card_fails():

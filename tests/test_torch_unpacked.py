@@ -18,7 +18,9 @@ from havac_tpu.io.fasta import load_fasta_database
 from havac_tpu.ops.common import SsvKernelConfig
 from havac_tpu.ops.ssv_pallas import _ssv_pallas_jit, ssv_pallas
 from havac_tpu.testing.generator import generate_planted_fixture
-from havac_tpu_torch.convert import state_from_unpacked
+from havac_tpu_torch.convert import (database_from_reference,
+                                     profile_hmms_from_reference,
+                                     state_from_unpacked)
 from havac_tpu_torch.engine import Havac
 from havac_tpu_torch.ops import ssv_cuda
 
@@ -115,7 +117,8 @@ def test_engine_matches_jax_packing1_pipeline(planted_db, jax_chunks,
     assert ref.config.packing == 1
     ours = Havac(p_value=0.05, device="cpu", pad_multiple=BW,
                  chunk_symbols=port_chunks[0], chunk_rows=port_chunks[1])
-    ours.load_phmm(models).load_sequence(db).run()
+    ours.load_phmm(profile_hmms_from_reference(models))
+    ours.load_sequence(database_from_reference(db)).run()
     a, b = ours.hits(), ref.hits()
     assert len(a) == len(b) > 0
     assert a.as_tuples() == b.as_tuples()

@@ -12,7 +12,13 @@ Phases (each prints its own lines; any failure exits non-zero):
              card, exactly (sorted keys, count, final state and carry):
              card 4 and 20, with and without reset rows, non-zero boundary
              state, ragged sizes, a key buffer smaller than the hit count
-             (the regrow path), and one case against a numpy oracle.
+             (the regrow path), one case against a numpy oracle, and the
+             word kernel's edges: L not a multiple of a block's diagonals,
+             P > L, P of 1, a block in both triangles, dense hits (many a
+             warp and row), offsets at the key limits, card 20 and card 5
+             (the table match) with reset rows, and a sequence long enough
+             for the wide (256-thread) blocks, which the shorter cases leave
+             to the narrow (64-thread) ones.
 4. main    — the published 10k-position point: a 50,818,468-position random
              chromosome (chr22's length) against ~10k positions of synthetic
              models at p = 0.02, through Havac(device="cuda") load_phmm /
@@ -20,7 +26,11 @@ Phases (each prints its own lines; any failure exits non-zero):
              once per chunk, that the first column chunk's hits equal the
              plain version's on the card, and that a sample of raw hits
              re-derives by bounded re-SSV.
-5. timing  — the kernel and the plain version at one main-path chunk shape.
+5. timing  — the kernel and the plain version at one main-path chunk shape,
+             card 4 (the main path's) and card 20 (random codes and scores
+             at the same shape); the interior hit window's SASS count
+             (``havac_tpu_torch.tools.sass`` ``fast_path``) as SASS a word
+             and row, and the issue share it implies at the measured time.
 6. percell — the per-cell DP readouts of havac_tpu_torch.testing.percell on
              the card: dp_matrix_kernel (one launch of the kernel's row-dump
              variant) against dp_matrix_torch (the plain version) cell for
@@ -78,13 +88,13 @@ import torch
 
 from havac_tpu_torch.engine import Havac, cli
 from havac_tpu_torch.ops import ssv_cuda
-from havac_tpu_torch.ops.ssv_torch import ssv_sweep_plain
+from havac_tpu_torch.ops.ssv_torch import MAX_POS, MAX_ROW, ssv_sweep_plain
 from havac_tpu_torch.testing.percell import (compare_matrices,
                                              dp_matrix_kernel, dp_matrix_rows,
                                              dp_matrix_torch)
 from havac_tpu_torch.testing.workload import (CHR22_LENGTH, write_fasta,
                                               write_workload)
-from havac_tpu_torch.tools import roofline
+from havac_tpu_torch.tools import roofline, sass
 
 SEED = 7
 MODEL_POSITIONS = 10020  # tools/runtime_table.py's 10k point
@@ -179,11 +189,24 @@ def phase_kernel(dev) -> int:
         ("card20-reset", 40_009, 61, 20, True, False, 1 << 20),
         ("regrow", 30_011, 45, 4, False, True, 17),
         ("tall-narrow", 300, 2_000, 4, False, True, 1 << 20),
+        # the word kernel's edges (narrow blocks below ~811k positions)
+        ("ragged-l", 3 * 1536 * 7 + 1001, 70, 4, False, True, 1 << 20),
+        ("p-above-l", 900, 2_500, 4, True, True, 1 << 20),
+        ("p-of-1", 50_000, 1, 4, False, True, 1 << 20),
+        ("both-triangles", 1_000, 1_200, 20, False, True, 1 << 20),
+        ("dense", 20_000, 40, 4, False, True, 1 << 20),
+        ("key-limits", 9_000, 64, 4, True, True, 1 << 20),
+        ("card5-tables", 12_345, 99, 5, True, True, 1 << 20),
+        ("wide-blocks", 1_000_003, 37, 4, True, True, 1 << 20),
     ]
     worst = 0
     for tag, L, P, card, with_reset, boundary, cap in cases:
         sym = rng.integers(0, card, L).astype(np.uint8)
         sc = rng.integers(-40, 70, (P, card)).astype(np.int8)
+        if tag == "dense":
+            sc = np.maximum(sc, 100).astype(np.int8)
+        offsets = ((MAX_ROW - P, MAX_POS - L) if tag == "key-limits"
+                   else (5, 11))
         ist = (rng.integers(0, 256, L) if boundary
                else np.zeros(L)).astype(np.int32)
         icr = (rng.integers(0, 256, P + 1) if boundary
@@ -192,10 +215,10 @@ def phase_kernel(dev) -> int:
               else None)
         t = [torch.from_numpy(a).to(dev) for a in (sym, sc, ist, icr)]
         trr = None if rr is None else torch.from_numpy(rr).to(dev)
-        res = ssv_cuda.ssv_sweep(*t, reset_rows=trr, row_offset=5,
-                                 pos_offset=11, cap=cap)
+        res = ssv_cuda.ssv_sweep(*t, reset_rows=trr, row_offset=offsets[0],
+                                 pos_offset=offsets[1], cap=cap)
         torch.cuda.synchronize()
-        plain = ssv_sweep_plain(*t, trr, row_offset=5, pos_offset=11)
+        plain = ssv_sweep_plain(*t, trr, *offsets)
         err = compare(tag, (res.keys, res.final_state, res.final_carry),
                       plain)
         if res.count != plain[0].numel():
@@ -203,6 +226,8 @@ def phase_kernel(dev) -> int:
                                  f"{plain[0].numel()}")
         if tag == "regrow" and not res.regrown:
             raise AssertionError("regrow case did not overflow its buffer")
+        if tag == "dense" and res.count <= L * P // 4:
+            raise AssertionError(f"dense case has only {res.count} hits")
         worst = max(worst, err)
         log(f"[kernel] {tag}: L={L} P={P} card={card} reset={with_reset} "
             f"hits={res.count} regrown={res.regrown} exact")
@@ -254,6 +279,27 @@ def same_matrix(tag: str, want: torch.Tensor, got: torch.Tensor) -> int:
         raise AssertionError(f"{tag}: cells differ by up to {err}; first: "
                              f"{compare_matrices(want, got, max_report=8)}")
     return err
+
+
+def sweep_sass() -> dict:
+    """SASS a word and row of the word kernel's interior hit window, per
+    instantiation of its wide (256-thread) blocks, which the main path's
+    chunks run: the smallest forward-branch pass of a barrier-free loop with
+    one vote (the partial-window and replay blocks skipped) over the
+    window's rows and a thread's words."""
+    kernels = sass.parse(sass.disassemble(ssv_cuda.library_path()))
+    out = {}
+    for tag, args in (("card4", "ILb1ELb0ELi256E"),
+                      ("card4-reset", "ILb1ELb1ELi256E"),
+                      ("tables", "ILb0ELb0ELi256E")):
+        name = next(n for n in kernels
+                    if "ssv_word_kernel" in n and args in n)
+        passes = [sass.fast_path(kernels[name], a, b)
+                  for a, b, counts, _ in sass.loops(kernels[name])
+                  if counts["bar"] == 0]
+        out[tag] = min(p["total"] for p in passes if p["VOTE"] == 1) / (
+            ssv_cuda.WINDOW_ROWS * ssv_cuda.KERNEL_WORDS)
+    return out
 
 
 def phase_percell(dev, engine, smi) -> dict:
@@ -491,7 +537,39 @@ def run_paths(dev, smi, work, max_err) -> dict:
     Lc = codes.shape[0]
     sweep_bytes = (Lc + rchunk * 4 + 2 * 4 * Lc + 2 * 4 * (rchunk + 1)
                    + 8 * int(out.count.item()))
-    del codes, tsc, ist, icr, out
+    del codes, tsc, out
+
+    # Card 20 at the same shape (the table match), held to the plain
+    # version there too.
+    rng = np.random.default_rng(SEED + 2)
+    sym20 = torch.from_numpy(rng.integers(0, 20, Lc).astype(np.uint8)).to(dev)
+    sc20 = torch.from_numpy(rng.integers(-30, 20, (rchunk, 20))
+                            .astype(np.int8)).to(dev)
+    out20 = ssv_cuda.SweepBuffers.empty(Lc, rchunk, 1 << 20, dev)
+    ms20 = cuda_ms(lambda: ssv_cuda.launch(sym20, sc20, ist, icr, None, 0, 0,
+                                           out20), reps=5)
+    plain20 = []
+    plain20_ms = cuda_ms(lambda: plain20.append(
+        ssv_sweep_plain(sym20, sc20, ist, icr)), reps=1)
+    n20 = int(out20.count.item())
+    max_err = max(max_err, compare(
+        "card20 chunk", (out20.keys[:n20], out20.final_state,
+                         out20.final_carry), plain20[-1]))
+    log(f"[timing] card 20, chunk {Lc} x {rchunk}: kernel {ms20:.3f} ms "
+        f"({cells / ms20 / 1e6:.2f} GCUPS), plain {plain20_ms:.3f} ms, "
+        f"{n20} hits == plain; {smi}")
+    del sym20, sc20, out20, plain20, ist, icr
+
+    card = roofline.Card.query(dev)
+    issue = card.sms * roofline.ISSUE_LANES_PER_SM * card.max_sm_mhz * 1e6
+    per_word = sweep_sass()
+    for tag, t in (("card4", ms), ("tables", ms20)):
+        share = per_word[tag] * cells / 3 / (t / 1e3) / issue
+        log(f"[sass] {tag}: {per_word[tag]:.4f} SASS a word and row "
+            f"(interior hit window), issue share {share:.4f} at {t:.3f} ms "
+            f"of {issue:.4g} slots/s; {smi}")
+    log(f"[sass] card4 with reset rows: {per_word['card4-reset']:.4f} SASS "
+        f"a word and row")
 
     # ---- the per-cell readouts, then the multi-file paths
     dump = phase_percell(dev, engine, smi)
@@ -616,9 +694,12 @@ def main() -> int:
     path = ssv_cuda.build()
     log(f"[build] {os.path.relpath(path, ROOT)} in "
         f"{time.perf_counter() - t0:.3f} s (nvcc {ssv_cuda.build_seconds:.3f} s)")
+    entry = ""
     for line in ssv_cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"[build] {line.strip()}")
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            log(f"[build] {entry}: {line.split(':', 1)[-1].strip()}")
 
     max_err = phase_kernel(dev)
 

@@ -38,7 +38,7 @@ from havac_tpu_torch.io.hmm import (ProfileHmm, model_length_prefix_sums, read_h
                               read_hmm_text)
 from havac_tpu_torch.ops.common import round_up
 from havac_tpu_torch.scoring.reprojection import project_models
-from havac_tpu_torch.engine.pipeline import PipelinedSweep, pairs_from_keys
+from havac_tpu_torch.engine.pipeline import PipelinedSweep, raw_pairs
 
 DEFAULT_P_VALUE = 0.02  # the reference CLI's default
 SCAN_PRODUCER_THREAD = "havac-scan-producer"
@@ -398,10 +398,7 @@ class Havac:
     def _sorted_raw(self) -> Tuple[np.ndarray, np.ndarray]:
         with self._state_lock:
             if self._raw is None:
-                parts = [k for k in self._raw_keys if k.size]
-                keys = (np.sort(np.concatenate(parts)) if parts
-                        else np.empty(0, dtype=np.uint64))
-                self._raw = pairs_from_keys(keys)
+                self._raw = raw_pairs(self._raw_keys, ordered=True)
                 self._raw_keys = []
             return self._raw
 
@@ -522,7 +519,8 @@ class Havac:
             self.stats.num_chunks = self._chunks_total
             self.stats.cells = sweep.L * sweep.P
             self.stats.sweep_seconds = t_sweep
-            self.stats.num_raw_hits = sum(int(k.size) for k in self._raw_keys)
+            self.stats.num_raw_hits = sum(int(k.shape[0])
+                                          for k in self._raw_keys)
             self.stats.chunk_geometry = {
                 "n_col": sweep.n_col, "n_row": sweep.n_row,
                 "chunk_symbols": sweep.chunk, "chunk_rows": sweep.rchunk,

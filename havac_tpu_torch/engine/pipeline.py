@@ -16,6 +16,12 @@ dirty-tile drain, record compaction, pull batching and learned record caps
 have no counterpart here: a chunk whose count exceeds the key buffer is
 launched once more with a buffer of exactly that size, and the buffer size
 for later chunks grows to fit.
+
+Keys hold global (row, position) pairs inside the bounds ``KEY_ROWS``,
+``KEY_POSITIONS`` and ``KEY_SEQUENCE``. Past any of them, as the reference
+does, the chunks are launched with chunk-local keys, the collector widens
+them by the chunk's first row and position, and hits travel as int64
+(row, position) pairs resolved by ``resolve_block_with_keys``.
 """
 
 from __future__ import annotations
@@ -37,6 +43,14 @@ from havac_tpu_torch.ops import ssv_cuda
 from havac_tpu_torch.ops.ssv_torch import KEY_POS_BITS, MAX_POS, MAX_ROW
 
 _POS_MASK = np.uint64((1 << KEY_POS_BITS) - 1)
+# The u64 hit key (row << 38) | pos holds global coordinates while the
+# collection has fewer rows, the database fewer positions and every sequence
+# fewer symbols than these (the native key resolver keeps sequence positions
+# in 32 bits). Past any of them the kernel emits chunk-local keys and the
+# host resolves int64 (row, position) pairs, as the reference does.
+KEY_ROWS = MAX_ROW
+KEY_POSITIONS = MAX_POS
+KEY_SEQUENCE = 1 << 31
 # Chunks in flight: while the host pulls and resolves chunk i, chunks i+1
 # and i+2 are queued on the device.
 LOOKAHEAD = 3
@@ -57,12 +71,31 @@ def pairs_from_keys(keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
             (keys & _POS_MASK).astype(np.int64))
 
 
+def raw_pairs(parts: List[np.ndarray], ordered: bool = False
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """Global (rows, positions) of raw hit parts as :meth:`PipelinedSweep.run`
+    returns them: uint64 keys, or (n, 2) int64 (row, position) pairs past the
+    key bounds. ``ordered`` sorts them by (row, position)."""
+    parts = [p for p in parts if p.shape[0]]
+    if not parts:
+        return np.empty(0, np.int64), np.empty(0, np.int64)
+    if parts[0].ndim == 1:
+        keys = np.concatenate(parts)
+        return pairs_from_keys(np.sort(keys) if ordered else keys)
+    pairs = np.concatenate(parts)
+    if ordered:
+        pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+    return pairs[:, 0].copy(), pairs[:, 1].copy()
+
+
 @dataclass
 class _Pending:
     """One launched chunk whose hits have not reached the host yet."""
 
     ri: int
-    inputs: tuple  # (lo, symbols, init_state, init_carry): for a regrow
+    r0: int  # the chunk's first global row and position: the keys are
+    lo: int  # chunk-local past the key bounds
+    inputs: tuple  # (symbols, init_state, init_carry): for a regrow
     out: ssv_cuda.SweepBuffers
     host_keys: Optional[torch.Tensor]  # pinned, CUDA only
     host_count: Optional[torch.Tensor]
@@ -71,12 +104,14 @@ class _Pending:
 
 @dataclass
 class ChunkHits:
-    """A chunk's hits on the host: every key (sorted) and the resolved
-    table of the kept ones (separator/padding hits dropped)."""
+    """A chunk's hits on the host: every hit (sorted) and the resolved
+    table of the kept ones (separator/padding hits dropped). Hits are
+    global uint64 keys, or (n, 2) int64 (row, position) pairs past the key
+    bounds."""
 
-    keys: np.ndarray  # uint64, sorted
+    keys: np.ndarray  # sorted by (row, position)
     resolved: ResolvedHits
-    kept_keys: np.ndarray  # uint64, sorted
+    kept_keys: np.ndarray  # sorted by (row, position)
 
 
 class PipelinedSweep:
@@ -99,10 +134,9 @@ class PipelinedSweep:
             raise ValueError(
                 f"symbol code {int(codes.max())} >= alphabet cardinality {card}")
         lengths = np.asarray(database.lengths, dtype=np.int64)
-        if (self.P >= MAX_ROW or self.L >= MAX_POS
-                or (lengths.size and int(lengths.max()) >= (1 << 31))):
-            raise ValueError("sweep exceeds the hit-key layout: rows < 2^25, "
-                             "positions < 2^38, sequences < 2^31")
+        self.keyform = (self.P < KEY_ROWS and self.L < KEY_POSITIONS
+                        and not (lengths.size
+                                 and int(lengths.max()) >= KEY_SEQUENCE))
         self.chunk = max(1, min(int(chunk_symbols), (1 << 31) - 1))
         self.n_col = -(-self.L // self.chunk)
         self.n_row = -(-self.P // max(1, int(chunk_rows)))
@@ -163,8 +197,7 @@ class PipelinedSweep:
         sym = self._codes_dev[lo:hi]
         out = ssv_cuda.SweepBuffers.empty(hi - lo, r1 - r0, self.key_cap,
                                           self.device)
-        ssv_cuda.launch(sym, self._scores_dev[ri], istate, icarry,
-                        self._reset_dev[ri], r0, lo, out)
+        self._launch(ri, r0, lo, (sym, istate, icarry), out)
         host_keys = host_count = event = None
         if self.device.type == "cuda":
             host_keys, host_count = self._host_buffers(out.cap)
@@ -172,8 +205,16 @@ class PipelinedSweep:
             host_keys.copy_(out.keys, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
-        return _Pending(ri, (lo, sym, istate, icarry), out, host_keys,
+        return _Pending(ri, r0, lo, (sym, istate, icarry), out, host_keys,
                         host_count, event)
+
+    def _launch(self, ri: int, r0: int, lo: int, inputs: tuple,
+                out: ssv_cuda.SweepBuffers) -> None:
+        sym, istate, icarry = inputs
+        if not self.keyform:
+            r0 = lo = 0  # chunk-local keys, widened on the host
+        ssv_cuda.launch(sym, self._scores_dev[ri], istate, icarry,
+                        self._reset_dev[ri], r0, lo, out)
 
     def _pull(self, p: _Pending) -> np.ndarray:
         """The chunk's keys on the host (unordered); regrows on overflow."""
@@ -195,12 +236,10 @@ class PipelinedSweep:
         # of exactly the count, and size later chunks' buffers to fit.
         self.regrows += 1
         self.key_cap = max(self.key_cap, round_up(n + n // 4, 1 << 16))
-        lo, sym, istate, icarry = p.inputs
         r0, r1 = self.row_range(p.ri)
-        out = ssv_cuda.SweepBuffers.empty(sym.shape[0], r1 - r0, n,
+        out = ssv_cuda.SweepBuffers.empty(p.inputs[0].shape[0], r1 - r0, n,
                                           self.device)
-        ssv_cuda.launch(sym, self._scores_dev[p.ri], istate, icarry,
-                        self._reset_dev[p.ri], r0, lo, out)
+        self._launch(p.ri, r0, p.lo, p.inputs, out)
         keys = out.keys.cpu().numpy().view(np.uint64).copy()
         if int(out.count.cpu()[0]) != n:
             raise RuntimeError("hit count changed on relaunch")
@@ -208,9 +247,14 @@ class PipelinedSweep:
         self.prof["regrow"] += time.perf_counter() - t1
         return keys
 
-    def _resolve_chunk(self, keys: np.ndarray) -> ChunkHits:
+    def _resolve_chunk(self, keys: np.ndarray, r0: int = 0,
+                       lo: int = 0) -> ChunkHits:
         """Collector-pool work item: sort the chunk's keys, then resolve
-        them to local coordinates (separator/padding hits dropped)."""
+        them to local coordinates (separator/padding hits dropped). Past
+        the key bounds the keys are chunk-local: (r0, lo) widens them."""
+        if not self.keyform:
+            rows, pos = pairs_from_keys(keys)
+            return self._resolve_pairs(rows + r0, pos + lo)
         t0 = time.perf_counter()
         keys.sort()
         t1 = time.perf_counter()
@@ -224,11 +268,26 @@ class PipelinedSweep:
             res, kr, kp = resolve_block_with_keys(rows, pos, self._database,
                                                   self._prefix)
             kept = keys_from_pairs(kr, kp)
+        self._account(t0, t1)
+        return ChunkHits(keys, res, kept)
+
+    def _resolve_pairs(self, rows: np.ndarray, pos: np.ndarray) -> ChunkHits:
+        """``_resolve_chunk`` past the key bounds: global int64 pairs."""
+        t0 = time.perf_counter()
+        order = np.lexsort((pos, rows))
+        rows, pos = rows[order], pos[order]
+        t1 = time.perf_counter()
+        res, kr, kp = resolve_block_with_keys(rows, pos, self._database,
+                                              self._prefix)
+        self._account(t0, t1)
+        return ChunkHits(np.stack([rows, pos], axis=1), res,
+                         np.stack([kr, kp], axis=1))
+
+    def _account(self, t0: float, t1: float) -> None:
         t2 = time.perf_counter()
         with self._prof_lock:
             self.prof["sort"] += t1 - t0
             self.prof["resolve"] += t2 - t1
-        return ChunkHits(keys, res, kept)
 
     # ---------------------------------------------------------------- run
 
@@ -238,7 +297,8 @@ class PipelinedSweep:
             ) -> Optional[Tuple[ResolvedHits, List[np.ndarray], float]]:
         """Full sweep; returns (resolved, raw key parts, sweep seconds), or
         None when aborted. ``resolved`` is ordered by (row, position); each
-        raw part holds one chunk's hit keys, sorted.
+        raw part holds one chunk's hits, sorted: uint64 keys, or (n, 2) int64
+        (row, position) pairs past the key bounds (:func:`raw_pairs`).
 
         ``checkpoint_cb(next_ci, carries (n_row, rchunk+1) int32, rows,
         positions)`` runs after every column chunk but the last, with the
@@ -270,13 +330,18 @@ class PipelinedSweep:
                 r0, r1 = self.row_range(ri)
                 prev_carry[ri] = torch.from_numpy(np.ascontiguousarray(
                     carries[ri][:r1 - r0 + 1], dtype=np.int32)).to(dev)
-            futures.append(pool.submit(self._resolve_chunk,
-                                       keys_from_pairs(rows0, pos0)))
+            rows0 = np.asarray(rows0, dtype=np.int64)
+            pos0 = np.asarray(pos0, dtype=np.int64)
+            futures.append(
+                pool.submit(self._resolve_chunk, keys_from_pairs(rows0, pos0))
+                if self.keyform else
+                pool.submit(self._resolve_pairs, rows0, pos0))
         done = start_ci * self.n_row
 
         def drain_one():
             p = pend.pop(0)
-            futures.append(pool.submit(self._resolve_chunk, self._pull(p)))
+            futures.append(pool.submit(self._resolve_chunk, self._pull(p),
+                                       p.r0, p.lo))
 
         for ci in range(start_ci, self.n_col):
             lo, hi = self.col_range(ci)
@@ -316,9 +381,7 @@ class PipelinedSweep:
                 carries = np.zeros((self.n_row, self.rchunk + 1), np.int32)
                 for ri, c in prev_carry.items():
                     carries[ri, :c.shape[0]] = c.cpu().numpy()
-                allk = np.concatenate([r.keys for r in results]
-                                      or [np.empty(0, np.uint64)])
-                rows_s, pos_s = pairs_from_keys(allk)
+                rows_s, pos_s = raw_pairs([r.keys for r in results])
                 checkpoint_cb(ci + 1, carries, rows_s, pos_s)
         t_drain = time.perf_counter()
         while pend:
@@ -339,7 +402,9 @@ def _merge_resolved(results: List[ChunkHits]) -> ResolvedHits:
         return ResolvedHits(*(np.empty(0, dtype=np.int64),) * 4)
     keys = np.concatenate([r.kept_keys for r in parts])
     order = None
-    if len(parts) > 1:
+    if len(parts) > 1 and keys.ndim == 2:  # (row, position) pairs
+        order = np.lexsort((keys[:, 1], keys[:, 0]))
+    elif len(parts) > 1:
         offs = np.cumsum([0] + [r.kept_keys.size for r in parts])
         order = native.merge_runs_u64_native(keys, offs, nthreads=8)
         if order is None:

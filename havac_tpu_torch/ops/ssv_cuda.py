@@ -37,6 +37,12 @@ import torch
 
 from havac_tpu_torch.ops.ssv_torch import MAX_POS, MAX_ROW, ssv_sweep_plain
 
+# The sweep kernel's geometry (csrc/ssv_sweep.cu kWords, kWin): words a
+# thread updates each row and rows of a hit window, which turn a window's
+# SASS count into SASS a word and row.
+KERNEL_WORDS = 2
+WINDOW_ROWS = 16
+
 LAUNCHES = 0  # sweep kernel launches (CUDA tensors only) in this process
 DUMP_LAUNCHES = 0  # row-dump variant launches (CUDA tensors only)
 
@@ -197,7 +203,9 @@ def launch(symbols: torch.Tensor, scores: torch.Tensor,
     receives the first ``out.cap`` hit keys, ``out.count`` the exact count.
     ``dump`` (P, L) uint8, when given, receives every post-update state
     (row-major: dump[j, i] = S[j][i]) and selects the row-dump variant.
-    Symbol codes must be < card (the engine checks them once on the host)."""
+    Symbol codes must be < card (the engine checks them once on the host),
+    and the boundary states ``init_state`` / ``init_carry`` lie in [0, 255],
+    as every state the sweep produces does."""
     global LAUNCHES, DUMP_LAUNCHES
     _check(symbols, scores, init_state, init_carry, reset_rows, row_offset,
            pos_offset, out, dump)

@@ -11,8 +11,12 @@ loops), tensor-core products (``HMMA``/``IMMA``), shared-memory loads and
 stores, and integer, conversion, shuffle and move instructions (``int``).
 Loops nest: an outer loop's counts include its inner loops'. Dividing a
 row loop's count by its rows (its barriers) and by the 16 words a thread
-updates gives the SASS per word and row that ``PERF.md`` reports. Needs
-the CUDA toolkit (``cuobjdump``).
+updates gives the roofline kernels' SASS per word and row that ``PERF.md``
+reports. Each loop also shows its forward-branch pass (:func:`fast_path`):
+the instructions one iteration issues when it takes every forward branch,
+which in the sweep kernel's hit window skips the partial-window and replay
+blocks; over the window's rows and words that is the sweep's SASS per word
+and row. Needs the CUDA toolkit (``cuobjdump``).
 """
 
 from __future__ import annotations
@@ -96,6 +100,35 @@ def loops(kernel: dict) -> list:
     return sorted(out)
 
 
+def fast_path(kernel: dict, start: int, end: int) -> Counter:
+    """Opcodes of one pass through the loop [start, end] that takes every
+    forward branch: a pass that skips each guarded block, such as the sweep
+    kernel's partial-window and hit-replay code. ``Counter["total"]`` holds
+    the instruction count."""
+    at = {a: i for i, (a, _, _) in enumerate(kernel["insns"])}
+    counts, i = Counter(), at[start]
+    while True:
+        addr, op, text = kernel["insns"][i]
+        counts[op] += 1
+        counts["total"] += 1
+        if addr >= end:
+            return counts
+        m = _TARGET.search(text) if op == "BRA" else None
+        target = None
+        if m:
+            target = (kernel["labels"].get(m.group(1)) if m.group(1)
+                      else int(m.group(2), 16))
+        i = at[target] if target is not None and target > addr else i + 1
+
+
+def disassemble(lib: str) -> str:
+    """``cuobjdump -sass`` of a kernel library."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    return subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--lib", default=None,
@@ -107,18 +140,15 @@ def main(argv=None) -> int:
     if lib is None:
         from havac_tpu_torch.ops import ssv_cuda
         lib = ssv_cuda.build()
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    for name, kernel in parse(sass).items():
+    for name, kernel in parse(disassemble(lib)).items():
         if args.match not in name:
             continue
         print(f"{name}: {len(kernel['insns'])} instructions")
         for start, end, counts, n in loops(kernel):
             detail = " ".join(f"{c}={counts[c]}" for c in CLASSES)
+            path = fast_path(kernel, start, end)["total"]
             print(f"  loop 0x{start:05x}-0x{end:05x}: {n} instructions, "
-                  f"{detail}")
+                  f"{detail}, forward-branch pass {path}")
     return 0
 
 

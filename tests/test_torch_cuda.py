@@ -56,6 +56,52 @@ def test_kernel_matches_plain(dev, card, reset, cap):
     assert torch.equal(res.final_carry, carry)
 
 
+# The word kernel's edges (a narrow block spans 3 * 128 = 384 diagonals, a
+# wide one 1,536; sequences under ~811k positions run narrow blocks):
+# (tag, L, P, card, reset, score high, row_offset, pos_offset)
+EDGE_CASES = [
+    ("ragged-l", 3 * 1536 * 7 + 1001, 70, 4, False, 70, 3, 9),
+    ("p-above-l", 900, 2500, 4, True, 70, 3, 9),
+    ("p-of-1", 50_000, 1, 4, False, 127, 3, 9),
+    ("both-triangles", 1000, 1200, 20, False, 70, 3, 9),
+    ("dense", 20_000, 40, 4, False, 127, 3, 9),
+    ("key-limits", 9_000, 64, 4, True, 70, (1 << 25) - 64,
+     (1 << 38) - 9_000),
+    ("card20-reset", 30_011, 203, 20, True, 70, 3, 9),
+    ("card5-tables", 12_345, 99, 5, True, 70, 3, 9),
+    ("wide-blocks", 1_000_003, 37, 4, True, 70, 3, 9),
+    ("wide-card20", 1_000_003, 29, 20, False, 70, 3, 9),
+]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES, ids=[c[0] for c in EDGE_CASES])
+def test_kernel_edges_match_plain(dev, case):
+    """Ragged L, P > L, P of 1, a block in both triangles, dense hits (many
+    a warp and row), offsets at the key limits, card 20 and 5 with reset
+    rows, wide blocks: sorted keys, count, state and carry exactly as the
+    plain version."""
+    tag, L, P, card, reset, hi, row_offset, pos_offset = case
+    rng = np.random.default_rng(len(tag) * 1000 + L)
+    sc = rng.integers(-40, hi, (P, card)).astype(np.int8)
+    if tag == "dense":
+        sc = np.maximum(sc, 100).astype(np.int8)
+    arrays = (rng.integers(0, card, L).astype(np.uint8), sc,
+              rng.integers(0, 256, L).astype(np.int32),
+              rng.integers(0, 256, P + 1).astype(np.int32))
+    t = [torch.from_numpy(a).to(dev) for a in arrays]
+    rr = (torch.from_numpy((rng.random(P) < 0.1).astype(np.int32)).to(dev)
+          if reset else None)
+    res = ssv_cuda.ssv_sweep(*t, reset_rows=rr, row_offset=row_offset,
+                             pos_offset=pos_offset)
+    keys, state, carry = ssv_sweep_plain(*t, rr, row_offset, pos_offset)
+    assert res.count == keys.numel() > 0
+    assert torch.equal(torch.sort(res.keys).values, keys)
+    assert torch.equal(res.final_state, state)
+    assert torch.equal(res.final_carry, carry)
+    if tag == "dense":
+        assert keys.numel() > L * P // 4
+
+
 def test_cuda_engine_matches_cpu_engine(dev):
     models, records = generate_planted_fixture(
         seed=19, model_length=25, sequence_length=6000, num_models=5)

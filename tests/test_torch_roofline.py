@@ -240,6 +240,36 @@ def test_sass_loops_are_the_backward_branches():
     assert (s2, e2, n2) == (0x20, 0x70, 6) and c2["int"] == 2
 
 
+WINDOW_SASS = """\
+\t\tFunction : _Z6windowPi
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/               @P0 BRA 0x40 ;
+        /*0020*/                   LDS R4, [R2] ;
+        /*0030*/                   BRA 0x10 ;
+        /*0040*/                   IMAD R5, R5, R6, R7 ;
+        /*0050*/                   VOTE.ANY P0, P0 ;
+        /*0060*/               @P0 BRA 0x90 ;
+        /*0070*/                   ATOMG.E.ADD.64 R8, [R2.64], R4 ;
+        /*0080*/                   LOP3.LUT R5, R5, 0x3, RZ, 0xc0, !PT ;
+        /*0090*/               @P1 BRA 0x10 ;
+        /*00a0*/                   EXIT ;
+"""
+
+
+def test_sass_fast_path_takes_every_forward_branch():
+    """One pass of the loop [0x10, 0x90] that skips the partial block
+    (0x20-0x30) and the replay block (0x70-0x80)."""
+    from havac_tpu_torch.tools import sass
+
+    kernel = sass.parse(WINDOW_SASS)["_Z6windowPi"]
+    loops = sass.loops(kernel)
+    assert [(s, e) for s, e, _, _ in loops] == [(0x10, 0x30), (0x10, 0x90)]
+    path = sass.fast_path(kernel, 0x10, 0x90)
+    assert path["total"] == 5
+    assert (path["BRA"], path["IMAD"], path["VOTE"]) == (3, 1, 1)
+    assert path["LDS"] == path["ATOMG"] == path["LOP3"] == 0
+
+
 def test_cli_cuda_without_a_card_fails():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

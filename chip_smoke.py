@@ -32,14 +32,19 @@ Phases (each prints its own lines; any failure exits non-zero):
              (``havac_tpu_torch.tools.sass`` ``fast_path``) as SASS a word
              and row, and the issue share it implies at the measured time.
 6. percell — the per-cell DP readouts of havac_tpu_torch.testing.percell on
-             the card: dp_matrix_kernel (one launch of the kernel's row-dump
-             variant) against dp_matrix_torch (the plain version) cell for
-             cell at full model width (the main path's 10,020 projected rows
-             x the first 262,144 positions of the chromosome), twice more
-             into buffers prefilled with 0x00 and 0xFF (every cell written),
-             a card-20 case and a case with reset rows and a non-zero carry
-             column; dp_matrix_rows (one launch per row) on 512 rows against
-             the dump; the dump kernel's and the plain version's times.
+             the card: dp_matrix_kernel (one launch of the row dump, the
+             sweep's word body in the dump's geometry) against
+             dp_matrix_torch (the plain version) cell for cell at full model
+             width (the main path's 10,020 projected rows x the first
+             262,144 positions of the chromosome), twice more into buffers
+             prefilled with 0x00 and 0xFF (every cell written), each with
+             keys, count, state and carry equal to an undumped launch's; a
+             card-20 case and a case with reset rows and a non-zero carry
+             column; a dump into a view 7 bytes into its buffer (nothing
+             written around it); dp_matrix_rows (one launch per row) on 512
+             rows against the dump; the dump's, the undumped kernel's and
+             the plain version's times, the dump's geometry (warps an SM),
+             SASS a cell and share of its byte bound.
 7. scan    — the chromosome as 4 FASTA files through
              Havac(device="cuda").scan_files, each file's hits against a
              fresh run on that file; the ``serve`` subcommand as a
@@ -49,16 +54,20 @@ Phases (each prints its own lines; any failure exits non-zero):
 8. roofline — the op-mix roofline kernels of havac_tpu_torch/csrc/roofline.cu
              (roofline_op_mix, roofline_add_chain, roofline_narrow_mix,
              roofline_strip, roofline_mxu) at K = 30, each variant at its
-             largest WS (64; 12 for stripmatch / mxumatch / mxumatch8, whose
-             planes live in shared memory): every copy of every one of the
-             15 variants against its plain version on the card, exactly, at
-             reps 1-3 (the three match-precompute variants also at WS 8);
-             the plain versions' times; then the tool's own entry point
-             (``python -m havac_tpu_torch.tools.roofline``) times each
-             kernel differentially, and ``current`` again at WS 12 beside
-             the three, and fails a variant whose rate would need more
-             instructions than the card issues. Prints the current/perrow
-             GCUPS-equiv beside the main path's sweep GCUPS.
+             largest WS (64; 12 for stripmatch, whose planes live in shared
+             memory; 48 for mxumatch / mxumatch8, whose warps' rings of
+             packed match words do): every copy of every one of the 15
+             variants against its plain version on the card, exactly, at
+             reps 1-3 (the three match-precompute variants also at WS 8,
+             mxumatch* at WS 12 too); the plain versions' times; then the
+             tool's own entry point (``python -m
+             havac_tpu_torch.tools.roofline``) times each kernel
+             differentially, ``current`` again at WS 12 beside stripmatch,
+             and mxumatch* at WS 8, 12 and 48 beside ``current`` at the
+             same WS, with warps an SM and SASS a word and row; it fails a
+             variant whose rate would need more instructions than the card
+             issues. Prints the current/perrow GCUPS-equiv beside the main
+             path's sweep GCUPS.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; the run fails if a kernel of the path did not launch. The
@@ -283,26 +292,55 @@ def same_matrix(tag: str, want: torch.Tensor, got: torch.Tensor) -> int:
 
 def sweep_sass() -> dict:
     """SASS a word and row of the word kernel's interior hit window, per
-    instantiation of its wide (256-thread) blocks, which the main path's
-    chunks run: the smallest forward-branch pass of a barrier-free loop with
-    one vote (the partial-window and replay blocks skipped) over the
-    window's rows and a thread's words."""
+    instantiation of its wide (256-thread, 2-word) blocks, which the main
+    path's chunks run, and of the row dump (its own geometry): the smallest
+    forward-branch pass of a loop with one vote (the partial-window and
+    replay blocks skipped; no barrier, or the dump's one: its staged rows'
+    hand-over) over the window's rows and a thread's words."""
     kernels = sass.parse(sass.disassemble(ssv_cuda.library_path()))
+    dump_geo = f"ELi{ssv_cuda.DUMP_THREADS}ELi{ssv_cuda.DUMP_WORDS}ELb1E"
     out = {}
-    for tag, args in (("card4", "ILb1ELb0ELi256E"),
-                      ("card4-reset", "ILb1ELb1ELi256E"),
-                      ("tables", "ILb0ELb0ELi256E")):
+    for tag, args, words, bars in (
+            ("card4", "ILb1ELb0ELi256ELi2ELb0E", ssv_cuda.KERNEL_WORDS, 0),
+            ("card4-reset", "ILb1ELb1ELi256ELi2ELb0E", ssv_cuda.KERNEL_WORDS,
+             0),
+            ("tables", "ILb0ELb0ELi256ELi2ELb0E", ssv_cuda.KERNEL_WORDS, 0),
+            ("dump", "ILb1ELb0" + dump_geo, ssv_cuda.DUMP_WORDS, 1)):
         name = next(n for n in kernels
                     if "ssv_word_kernel" in n and args in n)
         passes = [sass.fast_path(kernels[name], a, b)
                   for a, b, counts, _ in sass.loops(kernels[name])
-                  if counts["bar"] == 0]
+                  if counts["bar"] == bars]
         out[tag] = min(p["total"] for p in passes if p["VOTE"] == 1) / (
-            ssv_cuda.WINDOW_ROWS * ssv_cuda.KERNEL_WORDS)
+            ssv_cuda.WINDOW_ROWS * words)
     return out
 
 
-def phase_percell(dev, engine, smi) -> dict:
+def roofline_sass() -> dict:
+    """SASS a word and row of `current` (op_mix_kernel<0>: its row loop, one
+    barrier a row, over a thread's 16 words) and of mxumatch8 / mxumatch
+    (mxu_mix_kernel<1> / <2>: the tile loop, 3 products a tile, over a
+    group's 32 tiles, plus the row loop over the group's 8 rows, all over
+    the group's 8 rows x 16 words)."""
+    kernels = sass.parse(sass.disassemble(ssv_cuda.library_path()))
+
+    def loops_of(pattern):
+        name = next(n for n in kernels if pattern in n)
+        return sass.loops(kernels[name])
+
+    row = min(n for _, _, c, n in loops_of("op_mix_kernelILi0E")
+              if c["bar"] == 1)
+    out = {"current": row / 16}
+    for name, b in (("mxumatch8", 1), ("mxumatch", 2)):
+        ls = loops_of(f"mxu_mix_kernelILi{b}E")
+        tile_n, mma = min((n, c["mma"]) for _, _, c, n in ls
+                          if c["mma"] > 0 and c["bar"] == 0)
+        row_n = min(n for _, _, c, n in ls if c["bar"] == 1 and c["mma"] == 0)
+        out[name] = (tile_n * 32 / (mma / 3) + row_n * 8) / (8 * 16)
+    return out
+
+
+def phase_percell(dev, engine, smi, dump_sass: float) -> dict:
     db = engine.database
     start = int(db.starts[0])
     codes = torch.from_numpy(np.ascontiguousarray(
@@ -328,12 +366,22 @@ def phase_percell(dev, engine, smi) -> dict:
     err = same_matrix("full width", want, got)
     log(f"[percell] dp_matrix_kernel == dp_matrix_torch at {P} x {L} "
         f"({P * L} cells), DUMP_LAUNCHES={launches}")
+    undumped = ssv_cuda.ssv_sweep(codes, scores)
     for fill in (0x00, 0xFF):  # the wrapper dp_matrix_kernel launches
         got.fill_(fill)
-        ssv_cuda.ssv_sweep(codes, scores, dump=got)
+        res = ssv_cuda.ssv_sweep(codes, scores, dump=got)
         err = max(err, same_matrix(f"prefilled 0x{fill:02X}", want, got))
+        if res.count != undumped.count:
+            raise AssertionError(f"dump count {res.count} != undumped "
+                                 f"{undumped.count}")
+        err = max(err, compare(f"dump 0x{fill:02X} vs undumped",
+                               (res.keys, res.final_state, res.final_carry),
+                               (undumped.keys, undumped.final_state,
+                                undumped.final_carry)))
     log("[percell] dumps into buffers prefilled with 0x00 and 0xFF: exact "
-        "(every cell written)")
+        "(every cell written); keys, count, state and carry == an undumped "
+        f"launch's ({undumped.count} hits)")
+    del undumped
 
     ssv_cuda.LAUNCHES = 0
     rows = dp_matrix_rows(codes, scores[:PERCELL_ROWS_BY_LAUNCH])
@@ -353,8 +401,19 @@ def phase_percell(dev, engine, smi) -> dict:
                                          out, dump=got), reps=5)
     undumped_ms = cuda_ms(lambda: ssv_cuda.launch(codes, scores, zs, zc, None,
                                                   0, 0, out), reps=5)
+    nbytes = L + P * 4 + P * L  # symbols and scores read, every cell
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    blocks = -(-(L + P - 1) // (3 * ssv_cuda.DUMP_THREADS
+                                * ssv_cuda.DUMP_WORDS))
+    card = roofline.Card.query(dev)
     log(f"[percell] {P} x {L}: dump kernel {ms:.3f} ms, undumped kernel "
         f"{undumped_ms:.3f} ms, plain dp_matrix_torch {plain_ms:.3f} ms; {smi}")
+    log(f"[percell] dump geometry: {ssv_cuda.DUMP_THREADS} threads x "
+        f"{ssv_cuda.DUMP_WORDS} word a block, {blocks} blocks = "
+        f"{blocks * ssv_cuda.DUMP_THREADS / 32 / card.sms:.2f} warps an SM; "
+        f"{dump_sass / 3:.4f} SASS a cell ({dump_sass:.4f} a word and row, "
+        f"interior hit window); byte bound {byte_ms:.4f} ms = "
+        f"{byte_ms / ms:.4f} of the dump's time; {smi}")
     del want, got, out
 
     rng = np.random.default_rng(SEED + 1)
@@ -374,10 +433,16 @@ def phase_percell(dev, engine, smi) -> dict:
         err = max(err, same_matrix(tag, dp_matrix_torch(sym, sc, icr, rr),
                                    dp_matrix_kernel(sym, sc, icr, rr)))
         log(f"[percell] {tag}: {Pc} x {Lc} card={card} exact")
+    # A dump view 7 bytes into its buffer: the staging aligns by address.
+    buf = torch.full((Pc * Lc + 23,), 0xA5, dtype=torch.uint8, device=dev)
+    view = buf[7:7 + Pc * Lc].view(Pc, Lc)
+    ssv_cuda.ssv_sweep(sym, sc, dump=view)
+    err = max(err, same_matrix("unaligned", dp_matrix_torch(sym, sc), view))
+    if not ((buf[:7] == 0xA5).all() and (buf[7 + Pc * Lc:] == 0xA5).all()):
+        raise AssertionError("unaligned dump wrote outside its view")
+    log(f"[percell] unaligned: {Pc} x {Lc} dump 7 bytes into its buffer exact")
     return {"launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "cells": P * L,
-            # symbols and scores read, every cell's state written
-            "bytes": L + P * 4 + P * L}
+            "plain_ms": plain_ms, "cells": P * L, "bytes": nbytes}
 
 
 def phase_scan(dev, engine, hmm, work) -> None:
@@ -572,7 +637,7 @@ def run_paths(dev, smi, work, max_err) -> dict:
         f"a word and row")
 
     # ---- the per-cell readouts, then the multi-file paths
-    dump = phase_percell(dev, engine, smi)
+    dump = phase_percell(dev, engine, smi, per_word["dump"])
     phase_scan(dev, engine, hmm, work)
 
     return {"kernels": [
@@ -590,7 +655,9 @@ def phase_roofline(dev, smi, card, main_gcups):
     plain = {}
     for name in roofline.VARIANTS:
         top = roofline.max_ws(name, k)
-        for ws in (top, 8) if name in MATCH_PRECOMPUTE else (top,):
+        wss = ((top, 12, 8) if name in roofline.MXU_VARIANTS
+               else (top, 8) if name in MATCH_PRECOMPUTE else (top,))
+        for ws in dict.fromkeys(wss):
             x = roofline.make_inputs(name, ws, k, dev)
             copies = card.sms * roofline.blocks_per_sm(name, ws, k)
             for reps in (1, 2, 3):
@@ -616,24 +683,29 @@ def phase_roofline(dev, smi, card, main_gcups):
     # match-precompute variants' WS (like against like), filling the card
     # and at their one block per SM.
     ws_small = roofline.max_ws(MATCH_PRECOMPUTE[0], k)
-    paths = [os.path.join(ROOT, "build", f"roofline_smoke{i}.json")
-             for i in range(3)]
-    roofline.ROOFLINE_LAUNCHES.update(dict.fromkeys(roofline.KERNELS, 0))
+    mxu_top = roofline.max_ws("mxumatch", k)
     span = ["--rows", str(k), "--lo", str(ROOFLINE_LO), "--hi",
             str(ROOFLINE_HI)]
     small = span + ["--ws", str(ws_small), "--variants", "current"]
-    rcs = [roofline.main(span + ["--json", paths[0]]),
-           roofline.main(small + ["--json", paths[1]]),
-           roofline.main(small + ["--copies", str(card.sms), "--json",
-                                  paths[2]])]
+    mxu = list(roofline.MXU_VARIANTS)
+    argvs = [span, small, small + ["--copies", str(card.sms)],
+             span + ["--ws", "8", "--variants", "current", *mxu],
+             span + ["--ws", "12", "--variants", *mxu],
+             span + ["--ws", str(mxu_top), "--variants", "current"]]
+    paths = [os.path.join(ROOT, "build", f"roofline_smoke{i}.json")
+             for i in range(len(argvs))]
+    roofline.ROOFLINE_LAUNCHES.update(dict.fromkeys(roofline.KERNELS, 0))
+    rcs = [roofline.main(argv + ["--json", path])
+           for argv, path in zip(argvs, paths)]
     launches = dict(roofline.ROOFLINE_LAUNCHES)
     runs = []
     for path in paths:
         with open(path) as f:
             runs.append(json.load(f)["results"])
         os.remove(path)
-    results, small, one_block = runs
-    if rcs != [0, 0, 0] or sorted(results) != sorted(roofline.VARIANTS):
+    results, small, one_block, at8, at12, at_top = runs
+    if (rcs != [0] * len(argvs)
+            or sorted(results) != sorted(roofline.VARIANTS)):
         raise AssertionError(f"roofline tool rc={rcs}: {sorted(results)}")
     for kernel, n in launches.items():
         if n == 0:
@@ -654,6 +726,22 @@ def phase_roofline(dev, smi, card, main_gcups):
             g = results[name]["gcups_equiv_card"]
             log(f"[roofline] {name} / current at WS {ws_small}, "
                 f"{cur['copies']} copies: {g / cur['gcups_equiv_card']:.4f}")
+    # mxumatch* beside `current` at the same WS, with warps an SM and SASS.
+    per_word = roofline_sass()
+    log(f"[roofline] SASS a word and row: " + ", ".join(
+        f"{n} {v:.4f}" for n, v in per_word.items()))
+    by_ws = {8: at8, 12: {**at12, "current": small["current"]},
+             mxu_top: {**at_top, **{n: results[n] for n in mxu}}}
+    for ws, run in by_ws.items():
+        cur = run["current"]["gcups_equiv_card"]
+        for name in mxu:
+            r = run[name]
+            warps = roofline.blocks_per_sm(name, ws, k) * ws // 4
+            log(f"[roofline] {name} at WS {ws}: {r['sec_per_rep'] * 1e3:.6f} "
+                f"ms/rep, {r['gcups_equiv_card']:.2f} GCUPS-equiv = "
+                f"{r['gcups_equiv_card'] / cur:.4f} of current's {cur:.2f} "
+                f"at WS {ws}; {warps} warps an SM, {per_word[name]:.4f} SASS "
+                f"a word and row, issue share {r['issue_share']:.3f}; {smi}")
     log(f"[roofline] LAUNCHES={json.dumps(launches)}")
     for name in ("current", "perrow"):
         g = results[name]["gcups_equiv_card"]

@@ -20,8 +20,9 @@
 //                         stripmatch, `current` with the strip's K match
 //                         planes built once a rep into shared memory.
 //   mxu_mix_kernel<B>     replaces `kernel_mxu` (:409, launched at :464):
-//                         mxumatch (bf16) / mxumatch8 (int8), the match from
-//                         one tensor-core product (mma.sync) a flush.
+//                         mxumatch (bf16) / mxumatch8 (int8), the match
+//                         words from tensor-core products (mma.sync),
+//                         repacked in registers.
 //
 // Each block computes one instance, equal word for word to the TPU kernel's
 // output on the same inputs; `copies` blocks compute `copies` identical
@@ -468,23 +469,23 @@ strip_mix_kernel(const int32_t* __restrict__ scores,
   store16(out + (long long)blockIdx.x * nthreads * kWords + base, st);
 }
 
-// One tensor-core product of a flush: D (16 x 8) = A (16 x K) * B (K x 8),
-// A row-major, B column-major, fragments as PTX's mma.sync lays them out.
+// One tensor-core product: D (16 x 8) = A (16 x K) * B (K x 8) + C, A
+// row-major, B column-major, fragments as PTX's mma.sync lays them out. Only
+// a0 (A row g), a1 (A row g + 8) and b0 (B column g) are non-zero here: the
+// K columns 0-3 lie in lanes q = 0-1 (bf16) or q = 0 (s8).
 __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t b0) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+                                         uint32_t a1, uint32_t b0, float c) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%10, %11, %12, %13};\n"
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a0), "r"(a1), "r"(0u), "r"(0u), "r"(b0), "r"(0u), "f"(0.f),
-        "f"(0.f), "f"(0.f), "f"(0.f));
+      : "r"(a0), "r"(a1), "r"(0u), "r"(0u), "r"(b0), "r"(0u), "f"(c),
+        "f"(c), "f"(c), "f"(c));
 }
 
 __device__ __forceinline__ void mma_s8(int32_t (&d)[4], uint32_t a0,
                                        uint32_t a1, uint32_t b0) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%10, %11, %12, %13};\n"
       : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
@@ -492,59 +493,81 @@ __device__ __forceinline__ void mma_s8(int32_t (&d)[4], uint32_t a0,
         "r"(0), "r"(0), "r"(0));
 }
 
-// The match word from a product column's three fields (raw bits of the
-// accumulator: int32, or f32 converted as astype(int32) does).
-template <int B>
-__device__ __forceinline__ int32_t repack(int32_t x0, int32_t x1, int32_t x2) {
-  if (B == 2) {
-    x0 = __float2int_rz(__int_as_float(x0));
-    x1 = __float2int_rz(__int_as_float(x1));
-    x2 = __float2int_rz(__int_as_float(x2));
-  }
-  return add(add(x0, shl(x1, 10)), add(shl(x2, 20), 256 * kFM));
+// PTX shl.b32: a shift amount above 31 (a negative one, read unsigned)
+// gives 0, which C++'s << leaves undefined.
+__device__ __forceinline__ uint32_t shl_clamp(uint32_t x, uint32_t s) {
+  uint32_t r;
+  asm("shl.b32 %0, %1, %2;" : "=r"(r) : "r"(x), "r"(s));
+  return r;
 }
 
-constexpr int kMxuPad = 8;  // words of row padding: conflict-free D stores
+constexpr int kGroup = 8;          // rows a product: the mma's N
+constexpr int kQuadStride = 132;   // ring words from a row's quad to the next
+constexpr int kRowStride = 532;    // ring words from a row to the next
+constexpr int kRing = kGroup * kRowStride;  // ring words a warp
+// f32 1.5 * 2^23: x + kMagic has the bits kMagicBits + x for every integer
+// |x| < 2^22, so the f32 accumulator started at kMagic holds the product's
+// integer in its low bits, and kMagicBits << 10 and << 20 vanish mod 2^32.
+constexpr float kMagic = 12582912.0f;
+constexpr uint32_t kMagicBits = 0x4B400000u;
 
 // mxumatch / mxumatch8: replaces `kernel_mxu` (tools/roofline.py:409,
-// launched at :464). Once per flush of 10 rows the block computes the
-// product (10 x 4 scores) x (4 x 3*WS*128 one-hot) on the tensor cores with
-// mma.sync (bf16 m16n8k16 with an f32 accumulator, or s8 m16n8k32 with an
-// s32 one), M padded from 10 to 16 and K from 4 to 16 / 32 with zeros,
-// and stages it in shared memory (the TPU kernel kept it in VMEM); then each
-// of the 10 rows repacks m0 + (m1 << 10) + (m2 << 20) + 256 * FMASK from the
-// product's three WS-row thirds (converting f32 to int32 for bf16) and runs
-// `current`'s row update. The one-hot is staged once per block as [column]
-// [symbol], so a B fragment is one 32-bit load; the product takes
-// 10 * (3*WS*128 + 8) * 4 bytes, WS <= 12. Warp w takes n-tiles w, w +
-// warps, ...; a lane keeps D rows g (and g + 8 for g < 2, rows 8-9).
-// Bound: issue (the repack and row update); the products are 3/80 of an
-// mma per word and row.
+// launched at :464): per flush of 10 rows, the match words are the product
+// (10 x 4 scores) x (4 x 3*WS*128 one-hot), repacked as m0 + (m1 << 10) +
+// (m2 << 20) + 256 * FMASK from its three WS-row thirds, then `current`'s
+// row update. Bound: issue (the repack and the row); the products are 3/80
+// of an mma per word and row.
+//
+// Design: the product never leaves registers unpacked. Rows are taken 8 at
+// a time (a product's rows do not depend on the flush: the flush only
+// empties `bits`), and the product is taken transposed, D^T = one-hot^T x
+// scores^T, with mma.sync (bf16 m16n8k16 with an f32 accumulator started
+// at kMagic, or s8 m16n8k32 with an s32 one): M = one thread's 16 words, N
+// = 8 rows, K = the 4 symbols padded with zeros, so every output of the
+// mma is used. A warp computes only its own threads' words: for tile t
+// (thread t's words) three products, one per third, so the lane that holds
+// D(word, row) of one third holds it of the other two and repacks the
+// match word in registers (two shifted adds; bf16 needs no conversion, its
+// magic offset is folded into the bias, which the row's add takes). Only
+// the packed word goes to shared memory, into a ring private to the warp
+// ([row][quad][thread] int4 with padded strides, so the lanes' stores and
+// the row loop's 16-byte loads are conflict-free), handed over with
+// __syncwarp, never a block barrier. The A fragments come from the one-hot
+// compressed once a block to one byte a column (the code's shift in a
+// fragment: shl(1, 8 code) in lane q = 0 for s8, shl(0x3F80, 16 code - 32 q)
+// for bf16), the B fragment is one 32-bit load of the row's scores. The
+// ring takes 17,024 B a warp: WS <= 48 at K = 30 (12 warps, one block an
+// SM), and 8 warps an SM or more at every WS the tool runs. The input
+// one-hot must have one 1 a column, as `make_inputs` builds it.
 template <int B>  // bytes per input element: 1 = int8, 2 = bf16
 __global__ void __launch_bounds__(kMaxThreads, 1)
 mxu_mix_kernel(const uint8_t* __restrict__ scores,
-               const uint8_t* __restrict__ onehot, int nf, int reps,
+               const uint8_t* __restrict__ onehot, int K, int reps,
                int32_t* __restrict__ out) {
-  using Acc = typename std::conditional<B == 1, int32_t, float>::type;
   extern __shared__ __align__(16) int32_t smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nthreads = blockDim.x, nwarps = nthreads >> 5;
   const int words = nthreads * kWords;       // WS * 128
-  const int ncols = 3 * words, stride = ncols + kMxuPad;
-  const int sc_bytes = kNS * nf * 40 * B;    // (NS * NF, 10, 4)
-  int32_t* s_edge = smem;                                    // 2 * kMaxWarps
-  Acc* s_prod = reinterpret_cast<Acc*>(s_edge + 2 * kMaxWarps);  // 10 rows
-  uint32_t* s_oh = reinterpret_cast<uint32_t*>(s_prod + 10 * stride);
-  uint32_t* s_sc = s_oh + ncols * B;  // after the one-hot's ncols * 4 * B B
-  uint8_t* s_sc8 = reinterpret_cast<uint8_t*>(s_sc);
-  uint8_t* s_oh8 = reinterpret_cast<uint8_t*>(s_oh);
-  for (int x = tid; x < sc_bytes; x += nthreads) s_sc8[x] = scores[x];
-  for (int x = tid; x < 4 * ncols; x += nthreads) {  // [symbol][col] ->
-    const int a = x / ncols, col = x - a * ncols;      // [col][symbol]
+  const int ncols = 3 * words;
+  const int sc_bytes = kNS * K * 4 * B;      // (NS * K / 10, 10, 4)
+  int32_t* s_edge = smem;                    // 2 * kMaxWarps
+  int32_t* s_ring = s_edge + 2 * kMaxWarps;  // nwarps * kRing
+  uint8_t* s_sc = reinterpret_cast<uint8_t*>(s_ring + nwarps * kRing);
+  uint8_t* s_code = s_sc + (sc_bytes + 15) / 16 * 16;  // [third][word]
+  for (int x = tid; x < sc_bytes; x += nthreads) s_sc[x] = scores[x];
+  for (int col = tid; col < ncols; col += nthreads) {
+    int code = 0;
 #pragma unroll
-    for (int b = 0; b < B; ++b)
-      s_oh8[(col * 4 + a) * B + b] = onehot[(long long)x * B + b];
+    for (int a = 1; a < 4; ++a) {
+      bool on = false;
+#pragma unroll
+      for (int b = 0; b < B; ++b)
+        on |= onehot[((long long)a * ncols + col) * B + b] != 0;
+      if (on) code = a;
+    }
+    s_code[col] = (uint8_t)(code * 8 * B);
   }
+  __syncthreads();
 
   int32_t st[kWords], bits[kWords], acc[kWords], match[kWords];
 #pragma unroll
@@ -553,55 +576,77 @@ mxu_mix_kernel(const uint8_t* __restrict__ scores,
     bits[j] = 0;
     acc[j] = 0;
   }
-  const int g = lane >> 2, q = lane & 3, base = tid * kWords;
-  int buf = 0;
-  for (int r = 0; r < reps; ++r) {
-    for (int f = 0; f < nf; ++f) {
-      const int fi = (r % kNS) * nf + f;
-      __syncthreads();  // the previous flush's product is consumed
-      uint32_t a0 = 0, a1 = 0;  // A rows g and g + 8; K columns 0-3
-      if (q < (B == 1 ? 1 : 2)) {
-        a0 = s_sc[(fi * 10 + g) * (B == 1 ? 1 : 2) + q];
-        if (g < 2) a1 = s_sc[(fi * 10 + g + 8) * (B == 1 ? 1 : 2) + q];
-      }
-#pragma unroll 4
-      for (int t = warp; t < ncols / 8; t += nwarps) {
-        const int col = t * 8 + g;  // B fragment: column g of tile t
-        uint32_t b0 = 0;
-        if (q < (B == 1 ? 1 : 2)) b0 = s_oh[col * (B == 1 ? 1 : 2) + q];
-        Acc d[4];
-        if constexpr (B == 1) mma_s8(d, a0, a1, b0);
-        else mma_bf16(d, a0, a1, b0);
-        Acc* p = s_prod + g * stride + t * 8 + 2 * q;
-        p[0] = d[0];
-        p[1] = d[1];
-        if (g < 2) {
-          p[8 * stride] = d[2];
-          p[8 * stride + 1] = d[3];
-        }
-      }
-      __syncthreads();
-      for (int k = 0; k < kFlush; ++k) {
-        const int32_t left = left_word(st[kWords - 1], s_edge, buf);
-        const int4* row =
-            reinterpret_cast<const int4*>(s_prod + k * stride + base);
+  const int g = lane >> 2, q = lane & 3;
+  const uint32_t one = B == 1 ? (q == 0 ? 1u : 0u) : 0x3F80u;
+  const uint32_t qshift = B == 1 ? 0u : 32u * q;
+  const int32_t bias = (int32_t)(256u * kFM - (B == 1 ? 0u : kMagicBits));
+  int32_t* ring = s_ring + warp * kRing;
+  // This lane's product words: rows 2q and 2q + 1 of words g and g + 8 of
+  // every tile (quad g / 4, element g % 4).
+  int32_t* put = ring + 2 * q * kRowStride + (g >> 2) * kQuadStride + (g & 3);
+  const uint8_t* code = s_code + warp * 32 * kWords + g;
+  const int total = reps * K;
+  int buf = 0, f = 0;
+  for (int r0 = 0; r0 < total; r0 += kGroup) {
+    uint32_t b0 = 0;  // row r0 + g's scores at K columns 2q.. / 4q..
+    const int row = r0 + g;
+    if (row < total && q < (B == 1 ? 1 : 2)) {
+      const int rep = row / K, k = row - rep * K;
+      b0 = *reinterpret_cast<const uint32_t*>(
+          s_sc + ((rep % kNS) * K + k) * 4 * B + 4 * q);
+    }
+    __syncwarp();  // the ring's previous rows are read
+#pragma unroll 2
+    for (int t = 0; t < 32; ++t) {  // tile t: thread t's 16 words
+      int32_t d[3][4];
 #pragma unroll
-        for (int qd = 0; qd < kWords / 4; ++qd) {  // the three thirds
-          const int4 x0 = row[qd], x1 = row[words / 4 + qd],
-                     x2 = row[words / 2 + qd];
-          match[4 * qd] = repack<B>(x0.x, x1.x, x2.x);
-          match[4 * qd + 1] = repack<B>(x0.y, x1.y, x2.y);
-          match[4 * qd + 2] = repack<B>(x0.z, x1.z, x2.z);
-          match[4 * qd + 3] = repack<B>(x0.w, x1.w, x2.w);
+      for (int th = 0; th < 3; ++th) {
+        const uint8_t* c = code + th * words + t * kWords;
+        const uint32_t a0 = shl_clamp(one, c[0] - qshift);
+        const uint32_t a1 = shl_clamp(one, c[8] - qshift);
+        if constexpr (B == 1) {
+          mma_s8(d[th], a0, a1, b0);
+        } else {
+          float x[4];
+          mma_bf16(x, a0, a1, b0, kMagic);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[th][e] = __float_as_int(x[e]);
         }
-        row_update(st, bits, match, left);
       }
-      flush(bits, acc);
+      int32_t m[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        m[e] = add(add(d[0][e], shl(d[1][e], 10)), shl(d[2][e], 20));
+      int32_t* p = put + t * 4;
+      p[0] = m[0];                                  // word g, row 2q
+      p[kRowStride] = m[1];                         // word g, row 2q + 1
+      p[2 * kQuadStride] = m[2];                    // word g + 8, row 2q
+      p[2 * kQuadStride + kRowStride] = m[3];       // word g + 8, row 2q + 1
+    }
+    __syncwarp();
+    const int n = total - r0 < kGroup ? total - r0 : kGroup;
+    for (int k = 0; k < n; ++k) {
+      const int32_t left = left_word(st[kWords - 1], s_edge, buf);
+      const int4* row4 = reinterpret_cast<const int4*>(ring + k * kRowStride) +
+                         lane;
+#pragma unroll
+      for (int i = 0; i < kWords / 4; ++i) {
+        const int4 v = row4[i * (kQuadStride / 4)];
+        match[4 * i] = add(v.x, bias);
+        match[4 * i + 1] = add(v.y, bias);
+        match[4 * i + 2] = add(v.z, bias);
+        match[4 * i + 3] = add(v.w, bias);
+      }
+      row_update(st, bits, match, left);
+      if (++f == kFlush) {
+        f = 0;
+        flush(bits, acc);
+      }
     }
   }
 #pragma unroll
   for (int j = 0; j < kWords; ++j) st[j] = add(add(st[j], bits[j]), acc[j]);
-  store16(out + (long long)blockIdx.x * nthreads * kWords + base, st);
+  store16(out + (long long)blockIdx.x * nthreads * kWords + tid * kWords, st);
 }
 
 using OpMixFn = void (*)(const int32_t*, const int32_t*, const int32_t*,
@@ -630,11 +675,10 @@ size_t strip_smem(int ws, int k) {  // scores, edges, K match planes
   return sizeof(int32_t) * (kNS * k * 4 + 2 * kMaxWarps) +
          sizeof(int4) * (size_t)k * 4 * (ws * 128 / kWords);
 }
-size_t mxu_smem(int ws, int k, int bytes) {  // edges, product, one-hot, scores
-  const size_t ncols = 3 * (size_t)ws * 128;
-  const size_t sc = (size_t)kNS * (k / kFlush) * 40 * bytes;
-  return sizeof(int32_t) * (2 * kMaxWarps + 10 * (ncols + kMxuPad)) +
-         ncols * 4 * bytes + (sc + 15) / 16 * 16;
+size_t mxu_smem(int ws, int k, int bytes) {  // edges, rings, scores, codes
+  const size_t sc = (size_t)kNS * k * 4 * bytes;
+  return sizeof(int32_t) * (2 * kMaxWarps + (size_t)(ws / 4) * kRing) +
+         (sc + 15) / 16 * 16 + 3 * (size_t)ws * 128;
 }
 
 // Lets `fn` take `bytes` of dynamic shared memory (above 48 KB only by
@@ -717,7 +761,7 @@ extern "C" int hv_roofline_mxu(int bytes, const void* scores,
   if (e != cudaSuccess) return e;
   kMxu[bytes - 1]<<<copies, ws * 128 / kWords, smem, stream>>>(
       static_cast<const uint8_t*>(scores), static_cast<const uint8_t*>(onehot),
-      k / kFlush, reps, out);
+      k, reps, out);
   return cudaGetLastError();
 }
 

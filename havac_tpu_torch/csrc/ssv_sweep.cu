@@ -26,7 +26,7 @@
 // L2, and the hit keys.
 //
 // Design (the SWAR algebra of ssv_swar.py, without its roll): a block of
-// kT threads owns kV = kT * kWords words; word v holds the
+// kT threads owns kV = kT * kW words; word v holds the
 // diagonals d0 + v, d0 + kV + v and d0 + 2 kV + v in its 10-bit fields 0-2
 // (ssv_swar.py `pack_state`'s split-block layout with W3 = kV), so a
 // diagonal's state stays in its field for every row: no roll, no shuffle,
@@ -52,25 +52,60 @@
 // starts at row -d with init_carry[-d]), the right triangle (a diagonal ends
 // at position L - 1 before row P - 1) or the ragged end runs the same row
 // with per-field live masks (a field outside its rows neither changes nor
-// hits); the choice is per block, by its index. Blocks have kT = 256
-// threads, or 64 where 256-thread blocks would not fill every SM four times
-// (a short sequence), chosen per launch from the grid size.
+// hits), but only in the staged tiles where some field enters or leaves:
+// the rows where all of its fields are live take the unmasked row. (Masking
+// every row made the triangle blocks next to the interior, which walk
+// nearly all P rows at several times an interior block's cycles a row, the
+// launch's span at a short sequence; PERF.md.) Blocks have kT = 256
+// threads and kW = 2 words a thread, or 64 threads where 256-thread blocks
+// would not fill every SM four times (a short sequence), chosen per launch
+// from the grid size.
 //
-// Row-dump variant (a non-null `dump`, dispatched explicitly to
-// ssv_dump_kernel): the per-cell debug readout keeps the one-cell-per-thread
-// body. It replaces the SWAR kernel's `debug_rows` output (the packed state
-// after every row, havac_tpu/ops/ssv_swar.py `_ssv_swar_jit(debug_rows=True)`)
-// and the row-by-row `_ssv_pallas_jit` readout of havac_tpu/testing/percell.py
-// `dp_matrix_pallas`. Every active cell's post-update state is stored to
-// dump[j * L + i] as one byte (a post-update state lies in [0, 255]).
-// Consecutive threads own consecutive diagonals, hence consecutive positions
-// of a row, so a warp's 32 stores fill one 32-byte sector: the byte a cell
-// of device-memory writes is what grows with the matrix. It is a debug path:
-// its time is recorded in PERF.md, not tuned. Keys, the exact count,
-// final_state and final_carry are the same as an undumped launch's.
+// Row dump (a non-null `dump`): the same templates with kDump set. In the
+// fast pass of every hit window each live field's post-update state (at most
+// 255: field 0 is the word's low byte, fields 1 and 2 take one shift each)
+// goes to the cell's byte dump[j * L + d + j]; the replay stores nothing,
+// and a field outside its rows is never stored, so every cell is written
+// exactly once. It replaces the SWAR kernel's `debug_rows` output (the
+// packed state after every row, havac_tpu/ops/ssv_swar.py
+// `_ssv_swar_jit(debug_rows=True)`) and the row-by-row `_ssv_pallas_jit`
+// readout of havac_tpu/testing/percell.py `dp_matrix_pallas`.
+// What bounds it: the bytes, one a cell, and in practice their pattern. A
+// block's live cells at row j are one run of at most 3 kV bytes starting at
+// j (L + 1) + d0 + lo, an alignment that moves every row, and the block's
+// runs of successive rows lie L + 1 bytes apart. Byte stores of the live
+// fields straight from the word body (a warp's 32 lanes write 32
+// consecutive bytes a field) are the simplest form and the slowest:
+// havac_tpu_torch/tools/dump_probe.py times them against this design on
+// the card (PERF.md). So a hit window's rows are staged in shared memory,
+// each at its destination's alignment mod 16; after one barrier a window,
+// one thread a row writes the run's 16-byte-aligned middle with
+// cp.async.bulk (shared to global, the async proxy) and the ragged head and
+// tail (under 16 bytes each) go by byte stores, two buffers in turn so that
+// a window's copies run behind the next window's rows. Alignment is that of
+// the address, so the dump may start anywhere. Even those whole-chunk
+// writes drain slower the narrower the run (dump_probe.py's bare pattern),
+// and the dump's geometry is its own (kDumpT, kDumpW): 128 threads of one
+// word, a 384-byte run a row, the widest whose card-20 tables and two
+// staging buffers fit a block's 48 KB of static shared memory, one word a
+// thread keeping the row under 64 registers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifdef HV_BLOCK_STAMPS
+// Only in havac_tpu_torch/tools/dump_probe.py's builds, never the port's
+// library: each block's [start ns, end ns, edge, replayed windows].
+__device__ long long* g_stamps;
+extern "C" int hv_set_stamps(void* p) {
+  return (int)cudaMemcpyToSymbol(g_stamps, &p, sizeof(p));
+}
+__device__ __forceinline__ long long stamp_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#endif
 
 namespace {
 
@@ -93,6 +128,10 @@ struct Sweep {
   unsigned long long* keys;
   unsigned long long cap;
   unsigned long long* count;
+  // The row dump (kDump instantiations only): (P, L) row-major from
+  // dump + skew, where dump is 16-byte aligned and skew < 16.
+  uint8_t* dump;
+  int skew;
 };
 
 // ---------------------------------------------------------------- words
@@ -102,13 +141,27 @@ struct Sweep {
 constexpr int kWide = 256;
 constexpr int kNarrow = 64;
 constexpr int kWords = 2;               // words a thread
+// The row dump's threads a block and words a thread. dump_probe.py's
+// builds also set other geometries, and byte stores straight from the word
+// body in place of the staging (which does not fit a wider block's static
+// shared memory), to compare them with the staging.
+#ifndef HV_DUMP_THREADS
+#define HV_DUMP_THREADS 128
+#endif
+constexpr int kDumpT = HV_DUMP_THREADS;
+constexpr int kDumpW = 1;
+#ifdef HV_DUMP_BYTE_STORES
+constexpr bool kByteStores = true;
+#else
+constexpr bool kByteStores = false;
+#endif
 constexpr int kRows = 64;               // model rows a staged tile
 constexpr int kWin = 16;                // rows a hit window
 
-template <bool kCard4, int kT>
+template <bool kCard4, int kT, int kW>
 struct Tile {
   // card 4: {b0, b1} planes; other cards: .x = the three codes
-  uint2 sym[kT * kWords + kRows];
+  uint2 sym[kT * kW + kRows];
   int4 row[kCard4 ? kRows : 1];  // card 4: {c, e1, e2, e3}
   // other cards: [k][f][code] = (score + 256) << 10 f; the slack keeps an
   // (invalid) code up to 255 inside the array
@@ -122,9 +175,9 @@ struct Fields {
   int js[3], je[3];  // live rows [js, je)
 };
 
-template <bool kCard4, int kT>
-__device__ __forceinline__ uint32_t match_word(const Tile<kCard4, kT>& t, int v,
-                                               int k) {
+template <bool kCard4, int kT, int kW>
+__device__ __forceinline__ uint32_t match_word(const Tile<kCard4, kT, kW>& t,
+                                               int v, int k) {
   const uint2 p = t.sym[v + k];
   if (kCard4) {
     const int4 r = t.row[k];
@@ -137,16 +190,17 @@ __device__ __forceinline__ uint32_t match_word(const Tile<kCard4, kT>& t, int v,
   }
 }
 
-// One row of one word: the new state; `hit` gets the live fields' bit 9.
-template <bool kCard4, bool kReset, bool kEdge, int kT>
+// One row of one word: the new state; `hit` gets the live fields' bit 9,
+// `lm` (kMask only) the live fields' 10-bit masks.
+template <bool kCard4, bool kReset, bool kMask, int kT, int kW>
 __device__ __forceinline__ uint32_t row_word(uint32_t st,
-                                             const Tile<kCard4, kT>& t,
+                                             const Tile<kCard4, kT, kW>& t,
                                              int v, int k, int j,
                                              const Fields& g,
                                              const int32_t* init_carry,
-                                             uint32_t& hit) {
-  uint32_t lm = 0;
-  if (kEdge) {
+                                             uint32_t& hit, uint32_t& lm) {
+  lm = 0;
+  if (kMask) {
 #pragma unroll
     for (int f = 0; f < 3; ++f) {
       if ((unsigned)(j - g.js[f]) < (unsigned)(g.je[f] - g.js[f]))
@@ -158,27 +212,93 @@ __device__ __forceinline__ uint32_t row_word(uint32_t st,
   }
   uint32_t in = st;
   if (kReset && t.reset[k]) in = 0;
-  const uint32_t w = in + match_word<kCard4, kT>(t, v, k);
+  const uint32_t w = in + match_word<kCard4, kT, kW>(t, v, k);
   const uint32_t t9 = w >> 9;
   const uint32_t keep = (w >> 8) & ~t9 & kFM;
   uint32_t nst = w & (keep * 255u);
   hit = w & kHM;
-  if (kEdge) {
+  if (kMask) {
     nst = (nst & lm) | (st & ~lm);
     hit &= lm;
   }
   return nst;
 }
 
+// The row dump's staging: a window's rows, each at the alignment (mod 16)
+// of its destination, two windows' buffers in turn. (A ring of four drained
+// no faster: the write pattern, not the wait, sets the pace; PERF.md.)
+template <int kSpan>
+struct DumpStage {
+  static constexpr int kStride = (kSpan + 31) / 16 * 16;  // >= kSpan + 15
+  uint8_t row[2][kWin][kStride];
+};
+
+// Row j's live run of a block's span [lo, hi): diagonal d0 + x is live at
+// row j when its position d0 + x + j lies in [0, L).
+template <int kSpan>
+__device__ __forceinline__ void live_run(long long d0, int j, long long L,
+                                         int& lo, int& hi) {
+  const long long a = -(long long)j - d0, b = L - j - d0;
+  lo = a > 0 ? (int)a : 0;
+  hi = b < kSpan ? (int)(b > 0 ? b : 0) : kSpan;
+}
+
+// A window's staged rows to the dump: the 16-byte-aligned middle of each
+// row's live run by one cp.async.bulk (thread r issues row r, so each of the
+// first kWin threads owns a bulk async-group a window), the ragged head and
+// tail (under 16 bytes each) by byte stores. Offsets count from the aligned
+// `dump` (the matrix starts at dump + skew). Called after the barrier that
+// publishes the buffer; the copies read it while the next window runs.
+template <int kSpan, int kStride, int kT>
+__device__ __forceinline__ void dump_window(const uint8_t (&buf)[kWin][kStride],
+                                            uint8_t* dump, int skew,
+                                            long long L, long long d0, int j0,
+                                            int n) {
+  const int tid = threadIdx.x;
+  if (tid < n) {
+    const int j = j0 + tid;
+    int lo, hi;
+    live_run<kSpan>(d0, j, L, lo, hi);
+    const long long g = (long long)j * (L + 1) + d0 + skew;  // span position 0
+    const long long a = (g + lo + 15) & ~15LL, b = (g + hi) & ~15LL;
+    if (a < b) {
+      const uint8_t* src = &buf[tid][(int)(g & 15) + (int)(a - g)];
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::
+              "l"(dump + a),
+          "r"((uint32_t)__cvta_generic_to_shared(src)), "r"((uint32_t)(b - a))
+          : "memory");
+    }
+  }
+  if (tid < kWin) asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  for (int e = tid; e < n * 32; e += kT) {
+    const int r = e >> 5, i = e & 31, j = j0 + r;
+    int lo, hi;
+    live_run<kSpan>(d0, j, L, lo, hi);
+    const long long g = (long long)j * (L + 1) + d0 + skew;
+    const long long a = (g + lo + 15) & ~15LL, b = (g + hi) & ~15LL;
+    long long at = -1;  // byte i of the head (i < 16) or tail (i >= 16)
+    if (a >= b) {
+      if (i < hi - lo) at = g + lo + i;
+    } else if (i < 16) {
+      if (g + lo + i < a) at = g + lo + i;
+    } else if (b + (i - 16) < g + hi) {
+      at = b + (i - 16);
+    }
+    if (at >= 0) dump[at] = buf[r][(int)(g & 15) + (int)(at - g)];
+  }
+}
+
 // A warp's hits of one row: one atomicAdd for all of them.
-__device__ __forceinline__ void emit(const uint32_t (&hit)[kWords],
-                                     const Fields (&g)[kWords], int j,
+template <int kW>
+__device__ __forceinline__ void emit(const uint32_t (&hit)[kW],
+                                     const Fields (&g)[kW], int j,
                                      const Sweep& a) {
   const unsigned lane = threadIdx.x & 31;
-  unsigned m[kWords * 3];
+  unsigned m[kW * 3];
   unsigned total = 0;
 #pragma unroll
-  for (int q = 0; q < kWords * 3; ++q) {
+  for (int q = 0; q < kW * 3; ++q) {
     m[q] = __ballot_sync(0xffffffffu, (hit[q / 3] >> (10 * (q % 3) + 9)) & 1u);
     total += __popc(m[q]);
   }
@@ -188,7 +308,7 @@ __device__ __forceinline__ void emit(const uint32_t (&hit)[kWords],
   base = __shfl_sync(0xffffffffu, base, 0);
   const unsigned lt = (1u << lane) - 1u;
 #pragma unroll
-  for (int q = 0; q < kWords * 3; ++q) {
+  for (int q = 0; q < kW * 3; ++q) {
     if ((m[q] >> lane) & 1u) {
       const unsigned long long idx = base + __popc(m[q] & lt);
       if (idx < a.cap) {
@@ -200,10 +320,10 @@ __device__ __forceinline__ void emit(const uint32_t (&hit)[kWords],
   }
 }
 
-template <bool kCard4, int kT>
-__device__ __forceinline__ void stage(Tile<kCard4, kT>& t, const Sweep& a,
+template <bool kCard4, int kT, int kW>
+__device__ __forceinline__ void stage(Tile<kCard4, kT, kW>& t, const Sweep& a,
                                       long long w0, int j0, int nrows) {
-  constexpr int kV = kT * kWords;
+  constexpr int kV = kT * kW;
   const int tid = threadIdx.x;
   for (int x = tid; x < kV + nrows - 1; x += kT) {
     uint32_t p = 0;
@@ -236,17 +356,124 @@ __device__ __forceinline__ void stage(Tile<kCard4, kT>& t, const Sweep& a,
   }
 }
 
-template <bool kCard4, bool kReset, bool kEdge, int kT>
-__device__ __forceinline__ void sweep_block(Tile<kCard4, kT>& t, const Sweep& a,
-                                            long long d0) {
-  constexpr int kV = kT * kWords;
+// The row dump's stores of one word into a row of the span: field f of word
+// w is span position f kV + w kT + tid of `row` (the staged row at its
+// destination's alignment, or with byte stores the dump's row itself).
+template <bool kMask, int kT, int kW>
+__device__ __forceinline__ void stage_word(uint8_t* row, uint32_t st,
+                                           uint32_t lm, int w) {
+#pragma unroll
+  for (int f = 0; f < 3; ++f)
+    if (!kMask || ((lm >> (10 * f)) & 1u))
+      row[f * kT * kW + w * kT + threadIdx.x] = (uint8_t)(st >> (10 * f));
+}
+
+// The hit windows of one staged tile (rows j0 .. j0 + nrows - 1), with the
+// per-field live masks where kMask.
+template <bool kCard4, bool kReset, bool kMask, int kT, int kW, bool kDump>
+__device__ __forceinline__ void tile_rows(uint32_t (&st)[kW],
+                                          const Tile<kCard4, kT, kW>& t,
+                                          DumpStage<3 * kT * kW>& ds,
+                                          int& win, const Sweep& a,
+                                          const Fields (&g)[kW], long long d0,
+                                          int j0, int nrows) {
+  const int tid = threadIdx.x;
+  for (int k0 = 0; k0 < nrows; k0 += kWin) {
+    uint32_t saved[kW], acc[kW];
+#pragma unroll
+    for (int w = 0; w < kW; ++w) {
+      saved[w] = st[w];
+      acc[w] = 0;
+    }
+    const int n = nrows - k0 < kWin ? nrows - k0 : kWin;
+    // The dump: row r of the window goes to buffer `win & 1`, at the
+    // alignment of its cell of diagonal d0, a.dump + gpos (byte stores: to
+    // there).
+    auto& buf = ds.row[win & 1];
+    long long gpos = (long long)(j0 + k0) * (a.L + 1) + d0 + a.skew;
+    if (n == kWin) {
+#pragma unroll
+      for (int r = 0; r < kWin; ++r) {
+#pragma unroll
+        for (int w = 0; w < kW; ++w) {
+          uint32_t h, lm;
+          st[w] = row_word<kCard4, kReset, kMask, kT, kW>(
+              st[w], t, w * kT + tid, k0 + r, j0 + k0 + r, g[w], a.init_carry,
+              h, lm);
+          acc[w] |= h;
+          if (kDump)
+            stage_word<kMask, kT, kW>(
+                kByteStores ? a.dump + gpos : &buf[r][(int)(gpos & 15)], st[w],
+                lm, w);
+        }
+        if (kDump) gpos += a.L + 1;
+      }
+    } else {
+#pragma unroll 1
+      for (int r = 0; r < n; ++r) {
+#pragma unroll
+        for (int w = 0; w < kW; ++w) {
+          uint32_t h, lm;
+          st[w] = row_word<kCard4, kReset, kMask, kT, kW>(
+              st[w], t, w * kT + tid, k0 + r, j0 + k0 + r, g[w], a.init_carry,
+              h, lm);
+          acc[w] |= h;
+          if (kDump)
+            stage_word<kMask, kT, kW>(
+                kByteStores ? a.dump + gpos : &buf[r][(int)(gpos & 15)], st[w],
+                lm, w);
+        }
+        if (kDump) gpos += a.L + 1;
+      }
+    }
+    if (kDump && !kByteStores) {
+      // The staged rows become visible to the bulk copies (async proxy);
+      // the previous window's copies, which read the other buffer, have
+      // finished reading it before anyone writes there again (each issuing
+      // thread has one group a window).
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      if (tid < kWin)
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      __syncthreads();
+      dump_window<3 * kT * kW, DumpStage<3 * kT * kW>::kStride, kT>(
+          buf, a.dump, a.skew, a.L, d0, j0 + k0, n);
+      ++win;
+    }
+    uint32_t any = 0;
+#pragma unroll
+    for (int w = 0; w < kW; ++w) any |= acc[w];
+    if (__any_sync(0xffffffffu, any != 0)) {
+      // Rare: replay the window from its saved state and emit its hits.
+#ifdef HV_BLOCK_STAMPS
+      if ((tid & 31) == 0)
+        atomicAdd((unsigned long long*)&g_stamps[4 * blockIdx.x + 3], 1ull);
+#endif
+#pragma unroll 1
+      for (int r = 0; r < n; ++r) {
+        uint32_t h[kW], lm;
+#pragma unroll
+        for (int w = 0; w < kW; ++w)
+          saved[w] = row_word<kCard4, kReset, kMask, kT, kW>(
+              saved[w], t, w * kT + tid, k0 + r, j0 + k0 + r, g[w],
+              a.init_carry, h[w], lm);
+        emit<kW>(h, g, j0 + k0 + r, a);
+      }
+    }
+  }
+}
+
+template <bool kCard4, bool kReset, bool kEdge, int kT, int kW, bool kDump>
+__device__ __forceinline__ void sweep_block(Tile<kCard4, kT, kW>& t,
+                                            DumpStage<3 * kT * kW>& ds,
+                                            const Sweep& a, long long d0) {
+  constexpr int kV = kT * kW;
   const int tid = threadIdx.x;
   const long long L = a.L;
   const int P = a.P;
-  uint32_t st[kWords];
-  Fields g[kWords];
+  uint32_t st[kW];
+  Fields g[kW];
 #pragma unroll
-  for (int w = 0; w < kWords; ++w) {
+  for (int w = 0; w < kW; ++w) {
     st[w] = 0;
 #pragma unroll
     for (int f = 0; f < 3; ++f) {
@@ -264,67 +491,34 @@ __device__ __forceinline__ void sweep_block(Tile<kCard4, kT>& t, const Sweep& a,
   if (jlo < 0) jlo = 0;
   long long jhi = L - d0;
   if (jhi > P) jhi = P;
+  // Rows [ja, jb) where every field of the block is live and none enters
+  // (the last negative diagonal, d0, enters at row -d0): an edge block runs
+  // its tiles inside them unmasked.
+  const long long ja = d0 < 0 ? 1 - d0 : 0;
+  long long jb = L - (d0 + 3 * kV - 1);
+  if (jb > P) jb = P;
 
+  int win = 0;  // windows so far: the dump's buffer parity
   for (int j0 = (int)jlo; j0 < jhi; j0 += kRows) {
     const int nrows = (int)(jhi - j0 < kRows ? jhi - j0 : kRows);
     __syncthreads();  // the previous tile is fully consumed
-    stage<kCard4, kT>(t, a, d0 + j0, j0, nrows);
+    stage<kCard4, kT, kW>(t, a, d0 + j0, j0, nrows);
     __syncthreads();
-    for (int k0 = 0; k0 < nrows; k0 += kWin) {
-      uint32_t saved[kWords], acc[kWords];
-#pragma unroll
-      for (int w = 0; w < kWords; ++w) {
-        saved[w] = st[w];
-        acc[w] = 0;
-      }
-      const int n = nrows - k0 < kWin ? nrows - k0 : kWin;
-      if (n == kWin) {
-#pragma unroll
-        for (int r = 0; r < kWin; ++r) {
-#pragma unroll
-          for (int w = 0; w < kWords; ++w) {
-            uint32_t h;
-            st[w] = row_word<kCard4, kReset, kEdge, kT>(
-                st[w], t, w * kT + tid, k0 + r, j0 + k0 + r, g[w],
-                a.init_carry, h);
-            acc[w] |= h;
-          }
-        }
-      } else {
-#pragma unroll 1
-        for (int r = 0; r < n; ++r) {
-#pragma unroll
-          for (int w = 0; w < kWords; ++w) {
-            uint32_t h;
-            st[w] = row_word<kCard4, kReset, kEdge, kT>(
-                st[w], t, w * kT + tid, k0 + r, j0 + k0 + r, g[w],
-                a.init_carry, h);
-            acc[w] |= h;
-          }
-        }
-      }
-      uint32_t any = 0;
-#pragma unroll
-      for (int w = 0; w < kWords; ++w) any |= acc[w];
-      if (__any_sync(0xffffffffu, any != 0)) {
-        // Rare: replay the window from its saved state and emit its hits.
-#pragma unroll 1
-        for (int r = 0; r < n; ++r) {
-          uint32_t h[kWords];
-#pragma unroll
-          for (int w = 0; w < kWords; ++w)
-            saved[w] = row_word<kCard4, kReset, kEdge, kT>(
-                saved[w], t, w * kT + tid, k0 + r, j0 + k0 + r, g[w],
-                a.init_carry, h[w]);
-          emit(h, g, j0 + k0 + r, a);
-        }
-      }
-    }
+    if (kEdge && !(j0 >= ja && j0 + nrows <= jb))
+      tile_rows<kCard4, kReset, true, kT, kW, kDump>(st, t, ds, win, a, g, d0,
+                                                     j0, nrows);
+    else
+      tile_rows<kCard4, kReset, false, kT, kW, kDump>(st, t, ds, win, a, g,
+                                                      d0, j0, nrows);
   }
+  // The dump's last bulk copies are done before the block's shared memory
+  // goes.
+  if (kDump && !kByteStores && tid < kWin)
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 
   // Each field holds its diagonal's state after its last live row.
 #pragma unroll
-  for (int w = 0; w < kWords; ++w) {
+  for (int w = 0; w < kW; ++w) {
 #pragma unroll
     for (int f = 0; f < 3; ++f) {
       const long long d = g[w].d[f];
@@ -338,126 +532,57 @@ __device__ __forceinline__ void sweep_block(Tile<kCard4, kT>& t, const Sweep& a,
 }
 
 // At most 64 registers a thread: 1024 / kT blocks of kT threads an SM.
-template <bool kCard4, bool kReset, int kT>
+template <bool kCard4, bool kReset, int kT, int kW, bool kDump>
 __global__ void __launch_bounds__(kT, 1024 / kT)
 ssv_word_kernel(const Sweep a) {
-  constexpr int kSpan = 3 * kT * kWords;  // diagonals a block
-  __shared__ __align__(16) Tile<kCard4, kT> t;
+  constexpr int kSpan = 3 * kT * kW;  // diagonals a block
+  __shared__ __align__(16) Tile<kCard4, kT, kW> t;
+  // The row dump's staging (declared, and unused, when not staging: 16
+  // bytes of shared memory is what it costs then).
+  __shared__ __align__(16)
+      uint8_t ds_raw[kDump && !kByteStores ? sizeof(DumpStage<kSpan>) : 16];
+  auto& ds = *reinterpret_cast<DumpStage<kSpan>*>(ds_raw);
   const long long d0 = (long long)blockIdx.x * kSpan - (a.P - 1);
+#ifdef HV_BLOCK_STAMPS
+  const long long t0 = stamp_ns();
+#endif
   if (blockIdx.x == 0 && threadIdx.x == 0) a.final_carry[0] = a.init_state[a.L - 1];
   // Interior: every field live from row 0 to row P - 1.
-  if (d0 >= 0 && d0 + kSpan - 1 <= a.L - a.P)
-    sweep_block<kCard4, kReset, false, kT>(t, a, d0);
+  const bool interior = d0 >= 0 && d0 + kSpan - 1 <= a.L - a.P;
+  if (interior)
+    sweep_block<kCard4, kReset, false, kT, kW, kDump>(t, ds, a, d0);
   else
-    sweep_block<kCard4, kReset, true, kT>(t, a, d0);
+    sweep_block<kCard4, kReset, true, kT, kW, kDump>(t, ds, a, d0);
+#ifdef HV_BLOCK_STAMPS
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    g_stamps[4 * blockIdx.x] = t0;
+    g_stamps[4 * blockIdx.x + 1] = stamp_ns();
+    g_stamps[4 * blockIdx.x + 2] = !interior;
+  }
+#endif
 }
 
-template <int kT>
+template <int kT, int kW, bool kDump>
 void launch_words(const Sweep& a, bool reset, cudaStream_t s) {
-  constexpr int kSpan = 3 * kT * kWords;
+  constexpr int kSpan = 3 * kT * kW;
   const unsigned grid = (unsigned)((a.L + a.P - 1 + kSpan - 1) / kSpan);
   if (a.card == 4 && reset)
-    ssv_word_kernel<true, true, kT><<<grid, kT, 0, s>>>(a);
+    ssv_word_kernel<true, true, kT, kW, kDump><<<grid, kT, 0, s>>>(a);
   else if (a.card == 4)
-    ssv_word_kernel<true, false, kT><<<grid, kT, 0, s>>>(a);
+    ssv_word_kernel<true, false, kT, kW, kDump><<<grid, kT, 0, s>>>(a);
   else if (reset)
-    ssv_word_kernel<false, true, kT><<<grid, kT, 0, s>>>(a);
+    ssv_word_kernel<false, true, kT, kW, kDump><<<grid, kT, 0, s>>>(a);
   else
-    ssv_word_kernel<false, false, kT><<<grid, kT, 0, s>>>(a);
-}
-
-// ----------------------------------------------------------- row dump
-
-constexpr int kDumpThreads = 256;  // diagonals a block
-constexpr int kDumpRows = 64;
-
-template <bool kReset>
-__global__ void __launch_bounds__(kDumpThreads)
-ssv_dump_kernel(const Sweep a, uint8_t* __restrict__ dump) {
-  // A symbol code >= card must not read outside the tile (the engine
-  // validates codes on the host; the slack keeps any byte in bounds).
-  __shared__ int32_t s_scores[kDumpRows * kMaxCard + 256];
-  __shared__ int32_t s_reset[kDumpRows];
-  __shared__ uint8_t s_sym[kDumpThreads + kDumpRows];
-
-  const int tid = threadIdx.x;
-  const unsigned lane = tid & 31;
-  const long long L = a.L;
-  const int P = a.P, card = a.card;
-  // Diagonals d in [-(P-1), L-1]; block b covers [d0, d0 + kDumpThreads).
-  const long long d0 = (long long)blockIdx.x * kDumpThreads - (P - 1);
-  const long long d = d0 + tid;
-  const bool valid = d <= L - 1;
-  // Rows this thread's diagonal occupies: [jstart, jend).
-  const int jstart = d < 0 ? (int)(-d) : 0;
-  const int jend = valid ? (int)(L - d < (long long)P ? L - d : P) : 0;
-  int32_t state = 0;
-  if (valid) state = d >= 1 ? a.init_state[d - 1] : a.init_carry[-d];
-  if (blockIdx.x == 0 && tid == 0) a.final_carry[0] = a.init_state[L - 1];
-
-  long long jlo = -(d0 + kDumpThreads - 1);
-  if (jlo < 0) jlo = 0;
-  long long jhi = L - d0;
-  if (jhi > P) jhi = P;
-
-  for (int j0 = (int)jlo; j0 < jhi; j0 += kDumpRows) {
-    const int nrows = (int)(jhi - j0 < kDumpRows ? jhi - j0 : kDumpRows);
-    __syncthreads();  // the previous tile is fully consumed
-    const int8_t* src = a.scores + (long long)j0 * card;
-    for (int t = tid; t < nrows * card; t += kDumpThreads) s_scores[t] = src[t];
-    if (kReset) {
-      for (int t = tid; t < nrows; t += kDumpThreads) s_reset[t] = a.reset_rows[j0 + t];
-    }
-    const long long w0 = d0 + j0;  // global position of s_sym[0]
-    for (int t = tid; t < kDumpThreads + nrows - 1; t += kDumpThreads) {
-      const long long i = w0 + t;
-      s_sym[t] = (i >= 0 && i < L) ? a.symbols[i] : 0;
-    }
-    __syncthreads();
-
-    for (int k = 0; k < nrows; ++k) {
-      const int j = j0 + k;
-      const bool active = (unsigned)(j - jstart) < (unsigned)(jend - jstart);
-      bool hit = false;
-      if (active) {
-        int32_t in = state;
-        if (kReset && s_reset[k]) in = 0;
-        const int32_t s = in + s_scores[k * card + s_sym[tid + k]];
-        hit = s >= 256;
-        state = (s < 0 || hit) ? 0 : s;
-        // 64-bit offset: a full-width dump exceeds 2^31 cells.
-        dump[(long long)j * L + d + j] = (uint8_t)state;
-      }
-      const unsigned mask = __ballot_sync(0xffffffffu, hit);
-      if (mask) {
-        const int leader = __ffs(mask) - 1;
-        unsigned long long base = 0;
-        if ((int)lane == leader) base = atomicAdd(a.count, (unsigned long long)__popc(mask));
-        base = __shfl_sync(0xffffffffu, base, leader);
-        if (hit) {
-          const unsigned long long idx = base + __popc(mask & ((1u << lane) - 1u));
-          if (idx < a.cap) {
-            a.keys[idx] = ((unsigned long long)(j + a.row_offset) << 38) |
-                          (unsigned long long)(d + j + a.pos_offset);
-          }
-        }
-      }
-    }
-  }
-
-  // The register holds the diagonal's state after its last row.
-  if (valid) {
-    if (jend == P) a.final_state[d + P - 1] = state;         // bottom edge
-    if (d + jend - 1 == L - 1) a.final_carry[jend] = state;  // right edge
-  }
+    ssv_word_kernel<false, false, kT, kW, kDump><<<grid, kT, 0, s>>>(a);
 }
 
 }  // namespace
 
 // `reset_rows` and `dump` may be null: no reset rows, no row dump. `dump`
-// is (P, L) uint8, row-major. The body is chosen explicitly: a non-null
-// `dump` runs the one-cell-per-thread dump kernel, otherwise card 4 runs the
-// word kernel's bit-plane match and every other card its table match.
+// is (P, L) uint8, row-major. Card 4 runs the bit-plane match and every
+// other card the table match; a non-null `dump` runs the same body in the
+// dump's geometry with its stores.
 extern "C" int hv_ssv_sweep(const void* symbols, long long L, const void* scores,
                             int P, int card, const void* init_state,
                             const void* init_carry, const void* reset_rows,
@@ -469,19 +594,17 @@ extern "C" int hv_ssv_sweep(const void* symbols, long long L, const void* scores
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned long long), s);
   if (err != cudaSuccess) return (int)err;
+  const int skew = (int)((uintptr_t)dump & 15);
   const Sweep a{(const uint8_t*)symbols, L, (const int8_t*)scores, P, card,
                 (const int32_t*)init_state, (const int32_t*)init_carry,
                 (const int32_t*)reset_rows, row_offset, pos_offset,
                 (int32_t*)final_state, (int32_t*)final_carry,
-                (unsigned long long*)keys, cap, (unsigned long long*)count};
+                (unsigned long long*)keys, cap, (unsigned long long*)count,
+                (uint8_t*)dump - skew, skew};
   const long long ndiag = L + P - 1;
   const bool reset = reset_rows != nullptr;
   if (dump != nullptr) {
-    const unsigned grid = (unsigned)((ndiag + kDumpThreads - 1) / kDumpThreads);
-    if (reset)
-      ssv_dump_kernel<true><<<grid, kDumpThreads, 0, s>>>(a, (uint8_t*)dump);
-    else
-      ssv_dump_kernel<false><<<grid, kDumpThreads, 0, s>>>(a, (uint8_t*)dump);
+    launch_words<kDumpT, kDumpW, true>(a, reset, s);
     return (int)cudaGetLastError();
   }
   // Wide blocks when they fill every SM four times over (their residency).
@@ -491,9 +614,9 @@ extern "C" int hv_ssv_sweep(const void* symbols, long long L, const void* scores
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   if (ndiag / (3 * kWide * kWords) >= 4LL * sms)
-    launch_words<kWide>(a, reset, s);
+    launch_words<kWide, kWords, false>(a, reset, s);
   else
-    launch_words<kNarrow>(a, reset, s);
+    launch_words<kNarrow, kWords, false>(a, reset, s);
   return (int)cudaGetLastError();
 }
 

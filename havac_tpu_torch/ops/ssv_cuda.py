@@ -15,9 +15,10 @@ once to that count and launches again. Both dispatch on the tensors'
 device: CPU tensors go to the plain version
 (:func:`havac_tpu_torch.ops.ssv_torch.ssv_sweep_plain`), CUDA tensors to the
 kernel, anything else raises. Given a ``dump`` tensor, either form also
-writes every post-update state into it (the kernel's row-dump variant, for
-per-cell debugging). ``LAUNCHES`` counts sweep launches, ``DUMP_LAUNCHES``
-launches of the row-dump variant.
+writes every post-update state into it (the kernel's row dump, for per-cell
+debugging: the same word body in the dump's own geometry, with its stores).
+``LAUNCHES`` counts sweep launches, ``DUMP_LAUNCHES`` launches of the row
+dump.
 """
 
 from __future__ import annotations
@@ -37,11 +38,14 @@ import torch
 
 from havac_tpu_torch.ops.ssv_torch import MAX_POS, MAX_ROW, ssv_sweep_plain
 
-# The sweep kernel's geometry (csrc/ssv_sweep.cu kWords, kWin): words a
-# thread updates each row and rows of a hit window, which turn a window's
-# SASS count into SASS a word and row.
+# The sweep kernel's geometry (csrc/ssv_sweep.cu kWords, kWin, kDumpT,
+# kDumpW): words a thread updates each row and rows of a hit window, which
+# turn a window's SASS count into SASS a word and row; the row dump's
+# threads a block and words a thread.
 KERNEL_WORDS = 2
 WINDOW_ROWS = 16
+DUMP_THREADS = 128
+DUMP_WORDS = 1
 
 LAUNCHES = 0  # sweep kernel launches (CUDA tensors only) in this process
 DUMP_LAUNCHES = 0  # row-dump variant launches (CUDA tensors only)
@@ -202,7 +206,7 @@ def launch(symbols: torch.Tensor, scores: torch.Tensor,
     kernel on the current stream and does not synchronise. ``out.keys``
     receives the first ``out.cap`` hit keys, ``out.count`` the exact count.
     ``dump`` (P, L) uint8, when given, receives every post-update state
-    (row-major: dump[j, i] = S[j][i]) and selects the row-dump variant.
+    (row-major: dump[j, i] = S[j][i]) and selects the row dump.
     Symbol codes must be < card (the engine checks them once on the host),
     and the boundary states ``init_state`` / ``init_carry`` lie in [0, 255],
     as every state the sweep produces does."""

@@ -12,9 +12,10 @@ matrix never has to reach the host):
   * ``dp_matrix_rows``   — the sweep kernel driven one model row per launch,
                            chaining each launch's final row state into the
                            next (``dp_matrix_pallas``'s readout);
-  * ``dp_matrix_kernel`` — one launch of the kernel's row-dump variant, which
-                           stores every cell as it computes it
-                           (``dp_matrix_swar``'s ``debug_rows`` dump).
+  * ``dp_matrix_kernel`` — one launch of the kernel's row dump: the
+                           production word body, storing every cell as it
+                           computes it (``dp_matrix_swar``'s ``debug_rows``
+                           dump of the production SWAR kernel).
 
 The device is the symbols' device: on CUDA tensors the last two launch the
 kernel (`havac_tpu_torch/csrc/ssv_sweep.cu`), on CPU tensors the wrapper
@@ -108,7 +109,7 @@ def dp_matrix_rows(symbols, scores) -> torch.Tensor:
 
 def dp_matrix_kernel(symbols, scores, init_carry=None,
                      reset_rows=None) -> torch.Tensor:
-    """Full state matrix from one launch of the kernel's row-dump variant.
+    """Full state matrix from one launch of the kernel's row dump.
     ``init_carry`` (P+1,) enters at the left edge and ``reset_rows`` (P,)
     zeroes the incoming diagonal, as in ``dp_matrix_swar``."""
     sym, sc, icr, rr = _inputs(symbols, scores, init_carry, reset_rows)

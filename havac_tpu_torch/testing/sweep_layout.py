@@ -25,6 +25,12 @@ decodes the hits row by row. Blocks that touch the left triangle (a
 diagonal below 0 starts at row -d with ``init_carry``), the right one (a
 diagonal ends at the sequence's last position) or lie past the sequence run
 a masked update: a field outside its live rows neither changes nor hits.
+They mask only the staged tiles where some field enters or leaves; a tile
+whose rows keep every field live runs the unmasked update.
+
+The row dump (``dump``, a (P, L) array) runs the same body in its own
+geometry (:data:`DUMP`): in the fast pass of every window each live field's
+post-update state is stored at ``dump[j, d + j]``, and nothing else is.
 
 :func:`sweep_words` follows the kernel block by block and returns what
 ``ops/ssv_torch.py`` ``ssv_sweep_plain`` returns; the CPU tests hold the two
@@ -65,6 +71,10 @@ class Layout:
         return 3 * self.V
 
 
+# The row dump's geometry (csrc/ssv_sweep.cu kDumpT, kDumpW).
+DUMP = Layout(threads=128, words=1)
+
+
 @dataclass
 class Stats:
     """What an emulated sweep went through."""
@@ -74,6 +84,9 @@ class Stats:
     windows: int = 0
     replays: int = 0
     max_warp_row_hits: int = 0  # most hits one warp emitted in one row
+    masked_tiles: int = 0  # staged tiles run with the per-field masks
+    tiles: int = 0
+    dump_writes: int = 0  # cells the row dump stored
 
 
 def pack3(f0, f1, f2) -> np.ndarray:
@@ -150,11 +163,22 @@ def field_live(j: int, js: np.ndarray, je: np.ndarray) -> np.ndarray:
     return pack3(*(np.where(live[f], FIELD, 0) for f in range(3)))
 
 
+def live_run(d0: int, j: int, L: int, span: int) -> Tuple[int, int]:
+    """The span positions [lo, hi) of a block's diagonals d0 + x live at
+    row j (their position d0 + x + j in [0, L)): the run the row dump
+    copies (csrc/ssv_sweep.cu `live_run`)."""
+    lo, hi = max(0, -j - d0), min(span, max(L - j - d0, 0))
+    return lo, max(lo, hi)
+
+
 def sweep_words(symbols, scores, init_state, init_carry, reset_rows=None,
                 row_offset: int = 0, pos_offset: int = 0,
-                layout: Layout = Layout(), stats: Optional[Stats] = None):
+                layout: Layout = Layout(), stats: Optional[Stats] = None,
+                dump: Optional[np.ndarray] = None):
     """The kernel's sweep, block by block; returns (keys sorted, final_state,
-    final_carry) as ``ssv_sweep_plain`` does."""
+    final_carry) as ``ssv_sweep_plain`` does. ``dump``, a (P, L) array, gets
+    every live field's post-update state as the row dump stores it (pass
+    ``layout=DUMP`` for the dump's geometry)."""
     sym = np.asarray(symbols, np.int64)
     sc = np.asarray(scores, np.int64)
     ist = np.asarray(init_state, np.int64)
@@ -185,35 +209,56 @@ def sweep_words(symbols, scores, init_state, init_carry, reset_rows=None,
         else:
             stats.interior_blocks += 1
         jlo, jhi = max(0, -(d0 + span - 1)), min(P, L - d0)
+        # Rows where every field is live and none enters: unmasked tiles.
+        ja, jb = (1 - d0 if d0 < 0 else 0), min(P, L - (d0 + span - 1))
 
-        def step(st, j, sym3):
-            if edge:  # inject init_carry at a negative diagonal's first row
+        def step(st, j, sym3, masked):
+            if masked:  # inject init_carry at a negative diagonal's first row
                 inj = pack3(*np.where((j == js) & (js > 0), icr[j], 0))
                 st = st | inj
             cur = np.zeros_like(st) if reset is not None and reset[j] else st
             nst, hit = update(cur, match(sym3, sc[j]))
-            if edge:
-                lm = field_live(j, js, je)
+            lm = field_live(j, js, je)
+            if masked:
                 nst = (nst & lm) | (st & ~lm & U32)
                 hit = hit & lm
-            return nst, hit
+            else:
+                assert (lm == pack3(FIELD, FIELD, FIELD)).all()
+            return nst, hit, lm
 
         for j0 in range(jlo, jhi, layout.rows):
             nrows = min(layout.rows, jhi - j0)
+            masked = edge and not (j0 >= ja and j0 + nrows <= jb)
+            stats.tiles += 1
+            stats.masked_tiles += masked
             staged = stage_symbols(sym, d0 + j0, V + nrows - 1, V)
             for k0 in range(0, nrows, layout.window):
                 n = min(layout.window, nrows - k0)
                 saved, acc = st, np.zeros_like(st)
                 for k in range(k0, k0 + n):
-                    st, hit = step(st, j0 + k, staged[v + k])
+                    st, hit, lm = step(st, j0 + k, staged[v + k], masked)
                     acc |= hit
+                    if dump is not None:  # the fast pass stores live fields
+                        j = j0 + k
+                        live = []
+                        for f in range(3):
+                            on = ((lm >> (10 * f)) & 1).astype(bool)
+                            dump[j, diag[f][on] + j] = (
+                                st[on] >> (10 * f)) & 0xFF
+                            stats.dump_writes += int(on.sum())
+                            live.append(diag[f][on] - d0)
+                        # The kernel copies the row's live run [lo, hi) of
+                        # the span: the live fields are exactly that run.
+                        lo, hi = live_run(d0, j, L, span)
+                        np.testing.assert_array_equal(
+                            np.sort(np.concatenate(live)), np.arange(lo, hi))
                 stats.windows += 1
                 if not acc.any():
                     continue
                 # The warps that saw a hit replay the window and decode it.
                 stats.replays += np.unique(warp[acc != 0]).size
                 for k in range(k0, k0 + n):
-                    saved, hit = step(saved, j0 + k, staged[v + k])
+                    saved, hit, _ = step(saved, j0 + k, staged[v + k], masked)
                     keys.append(decode_hits(hit, diag, j0 + k, row_offset,
                                             pos_offset))
                     per_lane = sum((hit >> (10 * f + 9)) & 1 for f in range(3))

@@ -24,8 +24,9 @@ Variants (the JAX tool's; see its docstring for what each prices):
       the match words of each flush of 10 rows from one tensor-core product
       (scores x one-hot), repacked into 10-bit fields.
 
-The last two keep per-flush or per-rep planes in shared memory, so they
-take a smaller WS than the others: :func:`max_ws` (12 at K = 30).
+The last two keep per-rep planes or their warps' packed match words in
+shared memory, so they take a smaller WS than the others: :func:`max_ws`
+(12 for ``stripmatch``, 48 for ``mxumatch*`` at K = 30).
 ``mxumatch*`` need K a multiple of 10 (the JAX tool silently runs
 10 * (K // 10) rows and reports K).
 
@@ -82,8 +83,9 @@ ROOFLINE_LAUNCHES = dict.fromkeys(KERNELS, 0)  # CUDA launches per kernel
 
 MAX_WS = 64  # one instance per block: 512 threads of 16 words
 MAX_ROWS = 128
-# Variants whose shared memory grows with WS (the strip's planes, a flush's
-# product): the kernel library decides how large a WS fits a block.
+# Variants whose shared memory grows with WS (the strip's planes, the
+# warps' rings of match words): the kernel library decides how large a WS
+# fits a block.
 SMEM_VARIANTS = ("stripmatch",) + MXU_VARIANTS
 
 # Lower bounds on the integer instructions per 32-bit word and row that an
@@ -103,11 +105,13 @@ MIN_OPS = {
     "stripmatch": (11.5, 3),
     # mxumatch8: the repack m0 + (m1 << 10) + (m2 << 20) + bias fuses into
     # 2 IMADs and the row's add into an IADD3 (3), the rest of the row as
-    # `current` (7); three 16-byte shared loads per 4 words (0.75); the
-    # product, one mma per 8 columns, 3 columns a word, once in 10 rows
-    # (3/80). mxumatch adds 3 F2I conversions (f32 to int32) a word.
-    "mxumatch8": (10 + 0.75 + 3 / 80, 3),
-    "mxumatch": (13 + 0.75 + 3 / 80, 3),
+    # `current` (7); the product, one mma per 8 columns, 3 columns a word,
+    # once in 10 rows (3/80). mxumatch the same: an f32 accumulator started
+    # at 1.5 * 2^23 carries the integer in its bits, so the work has no
+    # conversion. The work's count, not a design's: staging the product in
+    # shared memory is not counted.
+    "mxumatch8": (10 + 3 / 80, 3),
+    "mxumatch": (10 + 3 / 80, 3),
 }
 INT32_LANES_PER_SM = 64  # INT32 pipe lanes per SM (Hopper)
 ISSUE_LANES_PER_SM = 128  # 4 schedulers x one 32-thread instruction a clock
@@ -426,8 +430,8 @@ def _occupancy(name: str, ws: int, k: int) -> int:
 def max_ws(name: str, k: int = 30) -> int:
     """The largest WS the variant's kernel takes at K = k: MAX_WS, or for
     ``stripmatch`` / ``mxumatch*`` the largest multiple of 4 whose planes
-    fit a block's shared memory, as the kernel library reports it for the
-    current card (12 at K = 30 on an H100)."""
+    or match rings fit a block's shared memory, as the kernel library
+    reports it for the current card (12 and 48 at K = 30 on an H100)."""
     _check_name(name)
     _check_rows(name, k)
     if name not in SMEM_VARIANTS:
@@ -638,8 +642,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ws", type=int, default=None,
                     help="sublane rows of the (WS, 128) buffer (default: "
-                         "each variant's max_ws on cuda, 64 or 12 at K = "
-                         "30; 64 on cpu)")
+                         "each variant's max_ws on cuda, 64, 48 or 12 at "
+                         "K = 30; 64 on cpu)")
     ap.add_argument("--rows", type=int, default=30,
                     help="rows per rep (K)")
     ap.add_argument("--lo", type=int, default=None,

@@ -71,6 +71,10 @@ EDGE_CASES = [
     ("card5-tables", 12_345, 99, 5, True, 70, 3, 9),
     ("wide-blocks", 1_000_003, 37, 4, True, 70, 3, 9),
     ("wide-card20", 1_000_003, 29, 20, False, 70, 3, 9),
+    # P above a block's span: triangle blocks whose middle tiles run the
+    # unmasked row
+    ("long-triangles", 50_000, 3_000, 4, True, 70, 3, 9),
+    ("long-triangles-card20", 40_000, 2_500, 20, False, 70, 3, 9),
 ]
 
 
@@ -154,6 +158,67 @@ def test_dump_matches_plain(dev, card, reset):
         assert torch.equal(res.final_carry, undumped.final_carry)
 
 
+@pytest.mark.parametrize("offset", [1, 7, 13])
+def test_dump_into_an_unaligned_view(dev, offset):
+    """The kernel aligns its staged rows and bulk copies by address: a
+    (P, L) view starting at any byte of its buffer gets every cell and
+    nothing around it."""
+    rng = np.random.default_rng(offset)
+    L, P = 5_003, 97
+    sym = torch.from_numpy(rng.integers(0, 4, L).astype(np.uint8)).to(dev)
+    sc = torch.from_numpy(rng.integers(-40, 70, (P, 4)).astype(np.int8)
+                          ).to(dev)
+    want = dp_matrix_torch(sym, sc)
+    buf = torch.full((P * L + offset + 16,), 0xA5, dtype=torch.uint8,
+                     device=dev)
+    view = buf[offset:offset + P * L].view(P, L)
+    ssv_cuda.ssv_sweep(sym, sc, dump=view)
+    torch.cuda.synchronize()
+    assert torch.equal(view, want)
+    assert (buf[:offset] == 0xA5).all()
+    assert (buf[offset + P * L:] == 0xA5).all()
+
+
+# (tag, L, P, card, reset): the dump's 128-thread, one-word blocks span 384
+# diagonals, so P = 1,000 puts whole blocks in both triangles and L = 150
+# one block in both at once.
+DUMP_EDGE_CASES = [
+    ("p-above-span", 20_000, 1_000, 4, True),
+    ("both-triangles", 150, 700, 20, True),
+    ("ragged", 384 * 37 + 5, 300, 4, False),
+]
+
+
+@pytest.mark.parametrize("case", DUMP_EDGE_CASES,
+                         ids=[c[0] for c in DUMP_EDGE_CASES])
+def test_dump_edges_match_plain(dev, case):
+    """The row dump's triangles and ragged end: every cell once (0xFF
+    prefill), keys, count, state and carry as an undumped launch."""
+    tag, L, P, card, reset = case
+    rng = np.random.default_rng(len(tag) + L)
+    arrays = (rng.integers(0, card, L).astype(np.uint8),
+              rng.integers(-40, 70, (P, card)).astype(np.int8),
+              rng.integers(0, 256, L).astype(np.int32),
+              rng.integers(0, 256, P + 1).astype(np.int32))
+    t = [torch.from_numpy(a).to(dev) for a in arrays]
+    rr = (torch.from_numpy((rng.random(P) < 0.1).astype(np.int32)).to(dev)
+          if reset else None)
+    want = torch.empty((P, L), dtype=torch.uint8, device=dev)
+    keys, state, carry = ssv_sweep_plain(*t, rr, 3, 9, dump=want)
+    dump = torch.full((P, L), 0xFF, dtype=torch.uint8, device=dev)
+    res = ssv_cuda.ssv_sweep(*t, reset_rows=rr, row_offset=3, pos_offset=9,
+                             dump=dump)
+    undumped = ssv_cuda.ssv_sweep(*t, reset_rows=rr, row_offset=3,
+                                  pos_offset=9)
+    assert torch.equal(dump, want)
+    assert res.count == undumped.count == keys.numel()
+    assert torch.equal(torch.sort(res.keys).values, keys)
+    assert torch.equal(torch.sort(undumped.keys).values, keys)
+    for r in (res, undumped):
+        assert torch.equal(r.final_state, state)
+        assert torch.equal(r.final_carry, carry)
+
+
 def test_percell_functions_on_the_card(dev):
     """dp_matrix_kernel (one dump launch, with a carry column and reset
     rows) and dp_matrix_rows (one launch per row) against dp_matrix_torch,
@@ -205,7 +270,7 @@ def test_scan_files_cuda_matches_cpu(dev, tmp_path):
 def test_roofline_kernels_match_plain(dev, name, ws):
     """Every copy of every roofline kernel equals the plain version exactly
     (zero tolerance), at reps 0-3, at WS 8 and at the variant's maximum WS
-    (64, or 12 for stripmatch / mxumatch*), K = 30 and 7 (10 for
+    (64, or 12 for stripmatch, 48 for mxumatch*), K = 30 and 7 (10 for
     mxumatch*, which run whole flushes)."""
     kernel = roofline.KERNEL_OF[name]
     ws = 8 if ws == "8" else roofline.max_ws(name, 30)
@@ -232,7 +297,23 @@ def test_roofline_kernel_refuses_what_it_cannot_hold(dev):
     assert roofline.max_ws("stripmatch", 10) == 44
     for name in ("stripmatch", *roofline.MXU_VARIANTS):
         top = roofline.max_ws(name, 30)
-        assert top == 12
+        assert top == (12 if name == "stripmatch" else 48)
         with pytest.raises(ValueError, match=f"--ws {top + 4}"):
             roofline.op_mix(roofline.make_inputs(name, top + 4, 30, dev), 1)
         assert roofline.blocks_per_sm(name, top, 30) >= 1
+    # mxumatch* stage only their warps' packed match words: 8 warps an SM
+    # or more at every WS (a block is WS / 4 warps).
+    for name in roofline.MXU_VARIANTS:
+        for ws in (8, 12, 48):
+            assert roofline.blocks_per_sm(name, ws, 30) * ws // 4 >= 8
+
+
+@pytest.mark.parametrize("name", roofline.MXU_VARIANTS)
+def test_mxu_kernels_match_plain_at_ws_12(dev, name):
+    x = roofline.make_inputs(name, 12, 30, dev)
+    for reps in (1, 2, 3):
+        got = roofline.op_mix(x, reps, copies=4)
+        torch.cuda.synchronize()
+        want = roofline.op_mix_plain(name, x, reps)
+        for c in range(4):
+            assert torch.equal(got[c], want), (name, reps, c)

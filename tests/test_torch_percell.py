@@ -132,6 +132,17 @@ def test_dumped_sweep_keeps_every_other_output():
         assert_same(want, dump)
 
 
+def test_dump_buffer_need_not_be_aligned():
+    """The wrapper takes a contiguous (P, L) uint8 view at any offset, here
+    one byte in (the kernel aligns its bulk copies by address)."""
+    symbols, scores = (torch.from_numpy(a) for a in case(43, L=64, P=8))
+    want = torch.empty(8, 64, dtype=torch.uint8)
+    ssv_cuda.ssv_sweep(symbols, scores, dump=want)
+    dump = torch.zeros(8 * 64 + 1, dtype=torch.uint8)[1:].view(8, 64)
+    ssv_cuda.ssv_sweep(symbols, scores, dump=dump)
+    assert torch.equal(dump, want)
+
+
 @pytest.mark.parametrize("bad", ["dtype", "shape", "transposed", "device"])
 def test_wrapper_rejects_a_bad_dump_buffer(bad):
     symbols, scores = (torch.from_numpy(a) for a in case(41, L=64, P=8))

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from havac_tpu_torch.testing import mxu_layout as ML
 from havac_tpu_torch.tools import roofline as R
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -134,6 +135,68 @@ def test_mxumatch_needs_whole_flushes():
                                                x.scores), 1)
 
 
+def mxu_emulated(name, ws, k, reps):
+    x = R.make_inputs(name, ws, k)
+    return x, ML.mxu_words(x.planes[0].float().numpy(),
+                           x.scores.float().numpy(), ws, k, reps,
+                           R._input_dtype(name).itemsize)
+
+
+@pytest.mark.parametrize("name", R.MXU_VARIANTS)
+@pytest.mark.parametrize("k,reps", [(10, 0), (10, 1), (30, 2), (30, 3)])
+def test_mxu_fragment_emulation_equals_plain_and_jax_tool(name, k, reps):
+    """The kernel's mma.sync fragment mapping (transposed product, 8 rows a
+    product), in-register repack (the bf16 magic-number accumulator, its
+    offset in the bias) and the warp's ring, emulated in numpy with every
+    shared-memory access checked for bank conflicts: word for word the
+    plain version and the JAX tool's Pallas kernel."""
+    x, got = mxu_emulated(name, WS, k, reps)
+    assert got.dtype == np.int32 and got.shape == R.out_shape(name, WS)
+    np.testing.assert_array_equal(got, R.op_mix_plain(name, x, reps).numpy())
+    np.testing.assert_array_equal(got, jax_out(name, reps, k=k))
+
+
+@pytest.mark.parametrize("name", R.MXU_VARIANTS)
+def test_mxu_fragment_emulation_at_three_warps(name):
+    """WS 12: three warps, each with its own ring and tiles; 7 groups of 8
+    rows over two reps of K = 30, the last group ragged."""
+    x, got = mxu_emulated(name, 12, 30, 2)
+    np.testing.assert_array_equal(got, R.op_mix_plain(name, x, 2).numpy())
+
+
+@pytest.mark.parametrize("row,quad", [(532, 128), (528, 132)])
+def test_mxu_ring_padding_is_what_avoids_bank_conflicts(monkeypatch, row,
+                                                        quad):
+    """The ring's strides (532 words a row, 132 a quad) put each store
+    instruction's 32 lanes and each 16-byte load phase on distinct banks;
+    without either padding the emulation's bank check fails."""
+    monkeypatch.setattr(ML, "ROW_STRIDE", row)
+    monkeypatch.setattr(ML, "QUAD_STRIDE", quad)
+    with pytest.raises(AssertionError, match="bank conflict"):
+        mxu_emulated("mxumatch8", WS, 10, 1)
+
+
+def test_mxu_fragment_helpers():
+    """PTX shl.b32 clamps: the bf16 one-hot fragment of code c in lane q is
+    1.0 in the half c - 2q when that is 0 or 1, else 0; s8 puts 1 in byte
+    c of lane 0 only. The magic accumulator's bits carry the integer."""
+    for c in range(4):
+        for q in range(4):
+            frag = int(ML.shl_clamp(0x3F80, 16 * c - 32 * q))
+            want = {0: 0x3F80, 1: 0x3F800000}.get(c - 2 * q, 0)
+            assert frag == want
+        assert int(ML.shl_clamp(1, 8 * c)) == 1 << (8 * c)
+    x = np.arange(-128, 128, dtype=np.float32)
+    bits = (x + ML.MAGIC).view(np.uint32).astype(np.int64)
+    np.testing.assert_array_equal(bits - ML.MAGIC_BITS, x.astype(np.int64))
+    assert (ML.MAGIC_BITS << 10) & ML.U32 == 0
+    assert (ML.MAGIC_BITS << 20) & ML.U32 == 0
+    # The bound counts the work, not a design's staging (PERF.md section 2).
+    assert R.MIN_OPS["mxumatch8"] == (10 + 3 / 80, 3)
+    # bf16 too: the magic accumulator leaves no conversion to count.
+    assert R.MIN_OPS["mxumatch"] == (10 + 3 / 80, 3)
+
+
 def test_unknown_variants_raise():
     with pytest.raises(ValueError, match="unknown variant"):
         R.make_inputs("bogus", WS, K)
@@ -173,8 +236,8 @@ def test_wrapper_checks_inputs_and_kernel_shapes():
 
 
 def test_only_the_match_precompute_ws_asks_the_kernel_library():
-    """The planes of stripmatch and the product of mxumatch* live in shared
-    memory, so the kernel library caps their WS on the card
+    """The planes of stripmatch and the match rings of mxumatch* live in
+    shared memory, so the kernel library caps their WS on the card
     (tests/test_torch_cuda.py); the other variants keep WS 64 without
     asking it."""
     assert set(R.SMEM_VARIANTS) == set(MATCH_PRECOMPUTE)

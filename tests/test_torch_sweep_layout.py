@@ -184,3 +184,121 @@ def test_hit_decode_and_edge_masks():
                                          [True, True, True],
                                          [True, False, True]])
     assert not sl.field_live(2, js, je)[0] & sl.FIELD
+
+
+# The row dump on the word body: (tag, L, P, card, reset rows + carry,
+# non-zero init state, layout). P above the dump's 384-diagonal span puts
+# whole blocks in a triangle; L below it puts one block in both.
+DUMP_CASES = [
+    ("card4", 1000, 45, 4, False, False, sl.DUMP),
+    ("card4-reset-carry", 900, 40, 4, True, False, sl.DUMP),
+    ("card20", 700, 33, 20, False, False, sl.DUMP),
+    ("card20-reset-carry", 650, 30, 20, True, False, sl.DUMP),
+    ("p-above-span", 1000, 450, 4, True, False, sl.DUMP),
+    ("both-triangles", 150, 400, 20, True, False, sl.DUMP),
+    ("init-state", 800, 60, 4, True, True, sl.DUMP),
+    ("small-layout", 800, 50, 4, True, True, SMALL),
+]
+
+
+def dump_inputs(case):
+    tag, L, P, card, carry_reset, state, _ = case
+    sym, sc, ist, icr, rr = inputs(len(tag) * 7 + L, L, P, card,
+                                   reset=carry_reset, boundary=True)
+    if not state:
+        ist[:] = 0
+    if not carry_reset:
+        icr[:] = 0
+    return sym, sc, ist, icr, rr
+
+
+def dumped(args, layout):
+    """The emulated dump into a buffer of -1s, the sweep's outputs, stats."""
+    sym, sc = args[0], args[1]
+    dump = np.full((sc.shape[0], sym.shape[0]), -1, np.int16)
+    stats = sl.Stats()
+    out = sl.sweep_words(*args, row_offset=7, pos_offset=13, layout=layout,
+                         stats=stats, dump=dump)
+    return dump, out, stats
+
+
+@pytest.mark.parametrize("case", DUMP_CASES, ids=[c[0] for c in DUMP_CASES])
+def test_dump_emulation_matches_the_oracle(case):
+    """Every cell stored exactly once with the oracle's state; keys, state
+    and carry as an undumped sweep (and the plain version) give them."""
+    args = dump_inputs(case)
+    sym, sc, ist, icr, rr = args
+    dump, out, stats = dumped(args, case[-1])
+    _, want = ssv_reference(sym, sc, init_row_state=ist, init_carry=icr,
+                            reset_rows=rr, return_matrix=True)
+    np.testing.assert_array_equal(dump, want)
+    assert stats.dump_writes == sym.shape[0] * sc.shape[0]
+    assert_same(out, sl.sweep_words(*args, row_offset=7, pos_offset=13,
+                                    layout=case[-1]))
+    assert_same(out, plain(*args, row_offset=7, pos_offset=13))
+
+
+@pytest.mark.parametrize("case", [c for c in DUMP_CASES if not c[5]][:6],
+                         ids=[c[0] for c in DUMP_CASES if not c[5]][:6])
+def test_dump_emulation_matches_dp_matrix_swar(case):
+    """Card 4: the JAX package's `debug_rows` readout of its SWAR kernel
+    (interpret mode, nucleotide only), with its carry column and reset
+    rows; card 20: the JAX package's oracle matrix. And the port's
+    `dp_matrix_oracle` where there is no carry or reset."""
+    from havac_tpu.testing import percell as jax_percell
+    from havac_tpu_torch.testing.percell import dp_matrix_oracle
+
+    sym, sc, ist, icr, rr = dump_inputs(case)
+    dump, _, _ = dumped((sym, sc, ist, icr, rr), case[-1])
+    if sc.shape[1] == 4:
+        want = jax_percell.dp_matrix_swar(
+            sym, sc, init_carry=icr,
+            reset_rows=None if rr is None else rr != 0, interpret=True)
+    else:
+        _, want = ssv_reference(sym, sc, init_carry=icr, reset_rows=rr,
+                                return_matrix=True)
+    np.testing.assert_array_equal(dump, want)
+    if rr is None:
+        np.testing.assert_array_equal(dump, dp_matrix_oracle(sym, sc))
+
+
+def test_edge_blocks_mask_only_the_tiles_where_fields_enter_or_leave():
+    """A block of a triangle runs the masked update only in the tiles where
+    one of its fields enters or leaves; with P much larger than a block's
+    span most of an edge block's tiles are unmasked, and the sweep stays
+    exact."""
+    layout = sl.Layout(threads=8, words=1, rows=8, window=4)  # span 24
+    args = inputs(5, 600, 300, 4, reset=True)
+    stats = sl.Stats()
+    got = sl.sweep_words(*args, layout=layout, stats=stats)
+    assert_same(got, plain(*args))
+    assert stats.edge_blocks >= 20
+    # At most span / rows + 2 masked tiles a block at each edge.
+    assert stats.masked_tiles <= stats.edge_blocks * (layout.span //
+                                                      layout.rows + 2)
+    assert stats.masked_tiles < stats.tiles // 4
+
+
+def test_dump_probe_needs_a_card():
+    """tools/dump_probe.py compares the shipped dump design (its first)
+    with byte stores (builds of csrc/ssv_sweep.cu with its stamp, geometry
+    and store flags) and runs on a card only."""
+    from havac_tpu_torch.ops import ssv_cuda
+    from havac_tpu_torch.tools import dump_probe
+
+    assert dump_probe.DESIGNS[0][1:] == (ssv_cuda.DUMP_THREADS, False)
+    assert sl.DUMP.threads == ssv_cuda.DUMP_THREADS
+    assert sl.DUMP.words == ssv_cuda.DUMP_WORDS
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            dump_probe.main([])
+
+
+def test_chunk_time_needs_a_card():
+    """tools/chunk_time.py times the kernel's main-path instantiations at a
+    chunk shape, on a card only."""
+    from havac_tpu_torch.tools import chunk_time
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            chunk_time.main(["--positions", "64", "--rows", "8"])

@@ -66,8 +66,13 @@ Phases (each prints its own lines; any failure exits non-zero):
              and mxumatch* at WS 8, 12 and 48 beside ``current`` at the
              same WS, with warps an SM and SASS a word and row; it fails a
              variant whose rate would need more instructions than the card
-             issues. Prints the current/perrow GCUPS-equiv beside the main
-             path's sweep GCUPS.
+             issues. The narrow variants (add8, add16, int8mix, int16mix)
+             print their row loops' SASS a 32-bit word and row split by
+             pipe, with the issue and INT32 shares it implies, beside
+             `current`'s; add16 and int16mix their bounds (the kernels
+             line shows add8 and int8mix). Copies fill the card once
+             (``roofline.fill_copies``). Prints the current/perrow
+             GCUPS-equiv beside the main path's sweep GCUPS.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; the run fails if a kernel of the path did not launch. The
@@ -103,7 +108,7 @@ from havac_tpu_torch.testing.percell import (compare_matrices,
                                              dp_matrix_torch)
 from havac_tpu_torch.testing.workload import (CHR22_LENGTH, write_fasta,
                                               write_workload)
-from havac_tpu_torch.tools import roofline, sass
+from havac_tpu_torch.tools import narrow_time, roofline, sass
 
 SEED = 7
 MODEL_POSITIONS = 10020  # tools/runtime_table.py's 10k point
@@ -316,13 +321,17 @@ def sweep_sass() -> dict:
     return out
 
 
-def roofline_sass() -> dict:
+def roofline_sass() -> tuple[dict, dict]:
     """SASS a word and row of `current` (op_mix_kernel<0>: its row loop, one
     barrier a row, over a thread's 16 words) and of mxumatch8 / mxumatch
     (mxu_mix_kernel<1> / <2>: the tile loop, 3 products a tile, over a
     group's 32 tiles, plus the row loop over the group's 8 rows, all over
-    the group's 8 rows x 16 words)."""
+    the group's 8 rows x 16 words); and of the narrow variants (add8, add16,
+    int8mix, int16mix: their row loops a 32-bit output word, split by pipe,
+    as ``havac_tpu_torch.tools.narrow_time`` counts them)."""
     kernels = sass.parse(sass.disassemble(ssv_cuda.library_path()))
+    narrow = {name: narrow_time.row_sass(kernels, name)
+              for name in narrow_time.NARROW}
 
     def loops_of(pattern):
         name = next(n for n in kernels if pattern in n)
@@ -337,7 +346,9 @@ def roofline_sass() -> dict:
                           if c["mma"] > 0 and c["bar"] == 0)
         row_n = min(n for _, _, c, n in ls if c["bar"] == 1 and c["mma"] == 0)
         out[name] = (tile_n * 32 / (mma / 3) + row_n * 8) / (8 * 16)
-    return out
+    for name, n in narrow.items():
+        out[name] = n["total"]
+    return out, narrow
 
 
 def phase_percell(dev, engine, smi, dump_sass: float) -> dict:
@@ -659,7 +670,7 @@ def phase_roofline(dev, smi, card, main_gcups):
                else (top, 8) if name in MATCH_PRECOMPUTE else (top,))
         for ws in dict.fromkeys(wss):
             x = roofline.make_inputs(name, ws, k, dev)
-            copies = card.sms * roofline.blocks_per_sm(name, ws, k)
+            copies = roofline.fill_copies(name, ws, k, card.sms)
             for reps in (1, 2, 3):
                 got = roofline.op_mix(x, reps, copies)
                 torch.cuda.synchronize()
@@ -727,9 +738,30 @@ def phase_roofline(dev, smi, card, main_gcups):
             log(f"[roofline] {name} / current at WS {ws_small}, "
                 f"{cur['copies']} copies: {g / cur['gcups_equiv_card']:.4f}")
     # mxumatch* beside `current` at the same WS, with warps an SM and SASS.
-    per_word = roofline_sass()
+    per_word, narrow = roofline_sass()
     log(f"[roofline] SASS a word and row: " + ", ".join(
         f"{n} {v:.4f}" for n, v in per_word.items()))
+    # The narrow variants beside `current`: SASS a 32-bit word and row, and
+    # the issue and INT32 shares their measured rates imply.
+    clk = card.sms * card.max_sm_mhz * 1e6
+    for name in ("current", *narrow_time.NARROW):
+        r = results[name]
+        words_s = r["copies"] * k * r["ws"] * 128 / r["sec_per_rep"]
+        n = narrow.get(name)
+        if n is None:
+            log(f"[roofline] {name}: {per_word[name]:.4f} SASS a word and "
+                f"row, issue share {per_word[name] * words_s / (roofline.ISSUE_LANES_PER_SM * clk):.4f} "
+                f"at {r['sec_per_rep'] * 1e3:.6f} ms/rep; {smi}")
+            continue
+        log(f"[roofline] {name}: {n['total']:.4f} SASS a word and row "
+            f"({n['int32']:.4f} INT32-pipe, {n['imad']:.4f} IMAD, "
+            f"{n['viadd']:.4f} VIADD), issue share "
+            f"{n['total'] * words_s / (roofline.ISSUE_LANES_PER_SM * clk):.4f}, "
+            f"INT32 share "
+            f"{n['int32'] * words_s / (roofline.INT32_LANES_PER_SM * clk):.4f} "
+            f"at {r['sec_per_rep'] * 1e3:.6f} ms/rep ({r['copies']} copies); "
+            f"by MIN_OPS issue {r['issue_share']:.4f}, INT32 "
+            f"{r['int32_share']:.4f}; {smi}")
     by_ws = {8: at8, 12: {**at12, "current": small["current"]},
              mxu_top: {**at_top, **{n: results[n] for n in mxu}}}
     for ws, run in by_ws.items():
@@ -762,6 +794,14 @@ def phase_roofline(dev, smi, card, main_gcups):
             "ms": r["sec_per_rep"] * 1e3, "plain_ms": plain[name] * 1e3,
             **bound(0, max(card.op_seconds(name, words))),
             "library_ms": None})
+    # The kernels line shows add8 / int8mix; their int16 twins here.
+    for name in ("add16", "int16mix"):
+        r = results[name]
+        b = bound(0, max(card.op_seconds(
+            name, r["copies"] * k * r["ws"] * 128)))
+        log(f"[roofline] {roofline.KERNEL_OF[name]} ({name}): "
+            f"{json.dumps({'ms': r['sec_per_rep'] * 1e3, 'plain_ms': plain[name] * 1e3, 'copies': r['copies'], **b, 'share_of_bound': b['bound_ms'] / (r['sec_per_rep'] * 1e3)})}; "
+            f"{smi}")
     return entries, results["current"]["gcups_equiv_card"]
 
 

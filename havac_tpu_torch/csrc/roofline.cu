@@ -26,7 +26,9 @@
 //
 // Each block computes one instance, equal word for word to the TPU kernel's
 // output on the same inputs; `copies` blocks compute `copies` identical
-// instances so that the grid fills the card. `reps` is a runtime argument,
+// instances so that the grid fills the card (the int8 narrow kernels instead
+// spread the copies' lanes over 256-thread blocks, 48 lanes a thread: see
+// kFieldLanes). `reps` is a runtime argument,
 // so one build serves the differential timing (t(hi) - t(lo)) / (hi - lo).
 //
 // What bounds them on the H100: integer issue. Per SM and clock the four
@@ -48,10 +50,13 @@
 // elsewhere) that thread 0 reads as cin in the next rep. WS is capped at 64
 // (512 threads, six 16-word arrays in registers); the TPU tool's WS = 336
 // buffer (VMEM-sized) would not fit one SM and is not shrunk silently: the
-// wrapper refuses it. The narrow kernels pack 4 (int8) or 2 (int16) lanes
-// per 32-bit word and use SWAR arithmetic: a wrapping per-lane add
-// ((a & L) + (b & L)) ^ ((a ^ b) & H), lane-sign masks by prmt's sign
-// replication, and per-lane doubling by (x << 1) & ~lsb.
+// wrapper refuses it. The narrow kernels have no roll, so their lanes are
+// independent and their layout is free: int8 (B = 1) keeps three lanes in
+// the 10-bit fields of an int32, as `current` does, so that carries land in
+// guard bits and the adds and multiplies run as IMADs on the FMA pipe;
+// int16 (B = 2) keeps two lanes packed a word and adds them with Hopper's
+// 16x2 add (add.u16x2, SASS VIADD.16x2), exact per halfword (see
+// add_chain_kernel and narrow_mix_kernel).
 //
 // Anti-hoisting (the TPU tool's lesson, which nvcc shares): scores are read
 // at strip r % 16 every row, the hit bitmap folds into `acc` at every flush,
@@ -273,54 +278,191 @@ op_mix_kernel(const int32_t* __restrict__ scores,
   store16(out + (long long)blockIdx.x * nthreads * kWords + base, st);
 }
 
-// Packed lanes of B bytes in a 32-bit word: H = the lanes' sign bits,
-// LSB = their low bits, SIGNS = the prmt selector that replicates each
-// lane's sign over the lane, LANE = one lane's value mask.
-template <int B> struct Lanes;
-template <> struct Lanes<1> {
-  static constexpr uint32_t H = 0x80808080u, LSB = 0x01010101u,
-                            SIGNS = 0xBA98u, LANE = 0xFFu;
-};
-template <> struct Lanes<2> {
-  static constexpr uint32_t H = 0x80008000u, LSB = 0x00010001u,
-                            SIGNS = 0xBB99u, LANE = 0xFFFFu;
-};
+// ---- The narrow kernels: add8 / add16 (add_chain_kernel<B>) and int8mix /
+// int16mix (narrow_mix_kernel<B>).
+//
+// What bounds them on the H100: integer issue, and within it the INT32 pipe,
+// the only one that runs logic (LOP3), right shifts and byte permutes; adds,
+// multiplies and left shifts may issue as IMADs on the FMA pipe. Keeping 4
+// int8 or 2 int16 lanes packed a word and emulating each per-lane add with
+// masks spends nearly all of a row on the INT32 pipe while the FMA pipe
+// idles.
+//
+// int8 (B = 1): three lanes in the 10-bit fields of an int32 (kFM, the
+// layout of `current` and of the sweep kernel), field j of a thread's field
+// word w holding its lane 16 j + w. A lane's state and `bits` stay below 256
+// and a row's sum below 1024, so carries land in the guard bits and the loop
+// needs no lane mask: the add chain is one add and one LOP3 a field word,
+// ((s + i) ^ s) & 0xFF. The row update is `current`'s biased update without
+// the roll, w = u + m + 256 per field, m the truncated score of the lane's
+// symbol, hit iff bit 9, keep iff bit 8 and not bit 9: kernel8's row exactly
+// (its state is 0 unless 0 <= u + m <= 255, its hit is u + m >= 256, u the
+// state read unsigned). The planes' priority select collapses once a thread
+// into one-hot fields e1..e3 of the winning symbol, so the match is
+// `current`'s three IMADs c + e1 d1 + e2 d2 + e3 d3 with per-row scalars,
+// which a block builds once from the scores into shared memory (one int4
+// a row, read at strip r % 16 as the scores were).
+// `bits` doubles inside its field (an IMAD): kernel8 keeps it mod 256, so
+// at the start of a rep only its low 8 - K bits can still reach the output
+// (none when K >= 8: the rep's first flush comes 8 rows later) and the rest
+// are dropped there, once a rep. The lanes are independent (no roll), so a
+// thread owns 48 of them (16 field words, 12 output words) of the copies'
+// flat buffer, read at their offset modulo one instance; they are packed
+// into fields before the rep loop and out of them after it.
+//
+// int16 (B = 2): a lane with its bias and carry would need 18 bits, one lane
+// a word, so two lanes stay packed a word, 16 words a thread as op_mix. The
+// add is Hopper's 16x2 add (add.u16x2, one VIADD.16x2, wrapping per
+// halfword; a card test checks it on every pair); the match is the same
+// three IMADs with one-hot LSBs of each lane (exactly one term is non-zero a
+// lane, so nothing carries across lanes); the reset is the sign bits of one
+// 3-input LOP3 of (state, match, sum), the hit one more LOP3 of that and the
+// match. `bits` stays below 2^15 between flushes (at most 15 rows when
+// K >= 8) and is masked once a rep otherwise, so it doubles without a lane
+// mask (one LEA.HI with the hit's shift).
+//
+// Anti-hoisting: the rows' scalars are read at strip r % 16 every row, and
+// each iteration of the row loop is one row (unroll 1).
 
-template <int B>
-__device__ __forceinline__ uint32_t lane_add(uint32_t a, uint32_t b) {
-  constexpr uint32_t H = Lanes<B>::H, L = ~Lanes<B>::H;
-  return ((a & L) + (b & L)) ^ ((a ^ b) & H);  // per lane, wrapping
-}
+constexpr int kFieldLanes = 48;                // int8 lanes a thread (B = 1)
+constexpr int kFieldWords = kFieldLanes / 3;   // its field words
+constexpr int kFieldThreads = 256;             // block of the B = 1 kernels
+constexpr uint32_t kFieldBytes = 0xFFu * kFM;  // the low byte of each field
+constexpr uint32_t kH16 = 0x80008000u, kLsb16 = 0x00010001u;
 
-template <int B>
-__device__ __forceinline__ uint32_t sign_mask(uint32_t x) {
-  uint32_t r;  // all ones in every lane whose sign bit is set
-  asm("prmt.b32 %0, %1, 0, %2;" : "=r"(r) : "r"(x), "r"(Lanes<B>::SIGNS));
+__device__ __forceinline__ uint32_t add16x2(uint32_t a, uint32_t b) {
+  uint32_t r;  // per halfword, wrapping (sm_90)
+  asm("add.u16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
   return r;
 }
 
+__device__ __forceinline__ uint32_t sign_mask16(uint32_t x) {
+  uint32_t r;  // all ones in every halfword whose sign bit is set
+  asm("prmt.b32 %0, %1, 0, %2;" : "=r"(r) : "r"(x), "r"(0xBB99u));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t nonzero_mask16(uint32_t x) {
+  constexpr uint32_t L = ~kH16;
+  return sign_mask16((((x & L) + L) | x) & kH16);
+}
+
+// The B = 1 kernels' thread: bytes [g, g + 48) of the (copies x n)-byte
+// output, where n = WS * 512 is one instance; the input is one instance,
+// read at (g + 16 q) mod n. Threads past the end return at once.
+struct FieldSpan {
+  long long n, total, g;
+  __device__ FieldSpan(int ws, int copies)
+      : n(512LL * ws), total(512LL * ws * copies),
+        g(kFieldLanes * ((long long)blockIdx.x * blockDim.x + threadIdx.x)) {}
+  __device__ bool live() const { return g < total; }
+};
+
+__device__ __forceinline__ void load_fields(const int32_t* in,
+                                            const FieldSpan& sp,
+                                            uint32_t (&f)[kFieldWords]) {
+  uint32_t x[12];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    int4 v = make_int4(0, 0, 0, 0);
+    if (sp.g + 16 * q < sp.total)
+      v = reinterpret_cast<const int4*>(in)[(sp.g + 16 * q) % sp.n / 16];
+    x[4 * q] = v.x; x[4 * q + 1] = v.y; x[4 * q + 2] = v.z; x[4 * q + 3] = v.w;
+  }
+#pragma unroll
+  for (int w = 0; w < kFieldWords; ++w) {  // lane 16 j + w: byte w % 4 of
+    uint32_t v = 0;                        // input word 4 j + w / 4
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      v |= ((x[4 * j + w / 4] >> (8 * (w % 4))) & 0xFFu) << (10 * j);
+    f[w] = v;
+  }
+}
+
+__device__ __forceinline__ void store_fields(int32_t* out,
+                                             const FieldSpan& sp,
+                                             const uint32_t (&f)[kFieldWords]) {
+  uint32_t x[12];
+#pragma unroll
+  for (int w = 0; w < 12; ++w) {  // lane 4 w + b = 16 (w / 4) + 4 (w % 4) + b
+    uint32_t v = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      v |= ((f[4 * (w % 4) + b] >> (10 * (w / 4))) & 0xFFu) << (8 * b);
+    x[w] = v;
+  }
+#pragma unroll
+  for (int q = 0; q < 3; ++q)
+    if (sp.g + 16 * q < sp.total)
+      reinterpret_cast<int4*>(out)[(sp.g + 16 * q) / 16] =
+          make_int4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+}
+
+// x & ~m & kH16 as one LOP3 (left to itself, nvcc takes the hit from state,
+// match and sum, which needs a second LOP3 for the mask).
+__device__ __forceinline__ uint32_t hit_bits16(uint32_t x, uint32_t m) {
+  uint32_t r;
+  asm("lop3.b32 %0, %1, %2, %3, 0x20;" : "=r"(r) : "r"(x), "r"(m),
+      "r"(kH16));
+  return r;
+}
+
+// A row's scalars from its four int32 scores, as the match takes them:
+// {c, d1, d2, d3} with d_s = m_s - m0 and c = (m0 + 256) * kFM (B = 1) or
+// m0 * kLsb16 (B = 2), m the scores truncated to int8 / int16 (astype).
 template <int B>
-__device__ __forceinline__ uint32_t nonzero_mask(uint32_t x) {
-  constexpr uint32_t H = Lanes<B>::H, L = ~Lanes<B>::H;
-  return sign_mask<B>((((x & L) + L) | x) & H);
+__device__ __forceinline__ int4 row_scalars(const int32_t* m) {
+  if constexpr (B == 1) {
+    const int32_t t0 = (int8_t)m[0];
+    return make_int4((t0 + 256) * kFM, (int8_t)m[1] - t0, (int8_t)m[2] - t0,
+                     (int8_t)m[3] - t0);
+  } else {
+    const uint32_t v0 = (uint32_t)m[0] & 0xFFFFu;
+    return make_int4((int32_t)(v0 * kLsb16),
+                     (int32_t)(((uint32_t)m[1] & 0xFFFFu) - v0),
+                     (int32_t)(((uint32_t)m[2] & 0xFFFFu) - v0),
+                     (int32_t)(((uint32_t)m[3] & 0xFFFFu) - v0));
+  }
+}
+
+// Bit 0 of every field whose byte is non-zero.
+__device__ __forceinline__ uint32_t nonzero_fields(uint32_t f) {
+  return ((f + kFieldBytes) >> 8) & kFM;
 }
 
 template <int B>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-add_chain_kernel(const int32_t* __restrict__ i1g, int K, int reps,
-                 int32_t* __restrict__ out) {
-  const int base = threadIdx.x * kWords;
-  int32_t s[kWords], a[kWords];
-  load16(i1g + base, a);
+add_chain_kernel(const int32_t* __restrict__ i1g, int ws, int K, int reps,
+                 int copies, int32_t* __restrict__ out) {
+  if constexpr (B == 1) {
+    const FieldSpan sp(ws, copies);
+    if (!sp.live()) return;
+    uint32_t s[kFieldWords], a[kFieldWords];
+    load_fields(i1g, sp, a);
 #pragma unroll
-  for (int j = 0; j < kWords; ++j) s[j] = a[j];
-  for (int r = 0; r < reps; ++r)
-    for (int k = 0; k < K; ++k)
+    for (int j = 0; j < kFieldWords; ++j) s[j] = a[j];
+    for (int r = 0; r < reps; ++r)
+#pragma unroll 1
+      for (int k = 0; k < K; ++k)
 #pragma unroll
-      for (int j = 0; j < kWords; ++j)
-        s[j] = (int32_t)(lane_add<B>((uint32_t)s[j], (uint32_t)a[j]) ^
-                         (uint32_t)s[j]);
-  store16(out + (long long)blockIdx.x * blockDim.x * kWords + base, s);
+        for (int j = 0; j < kFieldWords; ++j)
+          s[j] = ((s[j] + a[j]) ^ s[j]) & kFieldBytes;
+    store_fields(out, sp, s);
+  } else {
+    const int base = threadIdx.x * kWords;
+    int32_t s[kWords], a[kWords];
+    load16(i1g + base, a);
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) s[j] = a[j];
+    for (int r = 0; r < reps; ++r)
+#pragma unroll 1
+      for (int k = 0; k < K; ++k)
+#pragma unroll
+        for (int j = 0; j < kWords; ++j)
+          s[j] = (int32_t)(add16x2((uint32_t)s[j], (uint32_t)a[j]) ^
+                           (uint32_t)s[j]);
+    store16(out + (long long)blockIdx.x * blockDim.x * kWords + base, s);
+  }
 }
 
 template <int B>
@@ -328,70 +470,120 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 narrow_mix_kernel(const int32_t* __restrict__ scores,
                   const int32_t* __restrict__ i1g,
                   const int32_t* __restrict__ i2g,
-                  const int32_t* __restrict__ i3g, int K, int reps,
-                  int32_t* __restrict__ out) {
-  using Ln = Lanes<B>;
+                  const int32_t* __restrict__ i3g, int ws, int K, int reps,
+                  int copies, int32_t* __restrict__ out) {
   extern __shared__ __align__(16) int32_t smem[];
+  int4* s_rows = reinterpret_cast<int4*>(smem);  // (kNS, K) row scalars
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  for (int x = tid; x < kNS * K * 4; x += nthreads) smem[x] = scores[x];
-  const int base = tid * kWords;
-  int32_t in[kWords];
-  uint32_t st[kWords], bits[kWords], acc[kWords];
-  uint32_t M1[kWords], M2[kWords], M3[kWords];  // lane masks of plane != 0
-  load16(i1g + base, in);
-#pragma unroll
-  for (int j = 0; j < kWords; ++j) M1[j] = nonzero_mask<B>((uint32_t)in[j]);
-  load16(i2g + base, in);
-#pragma unroll
-  for (int j = 0; j < kWords; ++j) M2[j] = nonzero_mask<B>((uint32_t)in[j]);
-  load16(i3g + base, in);
-#pragma unroll
-  for (int j = 0; j < kWords; ++j) {
-    M3[j] = nonzero_mask<B>((uint32_t)in[j]);
-    st[j] = M1[j] & Ln::LSB;  // where(i1, 1, 0)
-    bits[j] = 0;
-    acc[j] = 0;
-  }
+  for (int x = tid; x < kNS * K; x += nthreads)
+    s_rows[x] = row_scalars<B>(scores + 4 * x);
   __syncthreads();
-
-  for (int r = 0; r < reps; ++r) {
-    const int32_t* srow = smem + (r % kNS) * K * 4;
-    int f = 0;
-    for (int k = 0; k < K; ++k) {
-      const int4 m = *reinterpret_cast<const int4*>(srow + 4 * k);
-      // astype(int8/int16) truncates; broadcast the value to every lane.
-      const uint32_t m0 = ((uint32_t)m.x & Ln::LANE) * Ln::LSB;
-      const uint32_t m1 = ((uint32_t)m.y & Ln::LANE) * Ln::LSB;
-      const uint32_t m2 = ((uint32_t)m.z & Ln::LANE) * Ln::LSB;
-      const uint32_t m3 = ((uint32_t)m.w & Ln::LANE) * Ln::LSB;
+  if constexpr (B == 1) {
+    const FieldSpan sp(ws, copies);
+    if (!sp.live()) return;
+    uint32_t st[kFieldWords], bits[kFieldWords], acc[kFieldWords];
+    uint32_t e1[kFieldWords], e2[kFieldWords], e3[kFieldWords];
+    load_fields(i3g, sp, e3);
+    load_fields(i2g, sp, e2);
+    load_fields(i1g, sp, e1);
 #pragma unroll
-      for (int j = 0; j < kWords; ++j) {
-        uint32_t match = (M1[j] & m1) | (~M1[j] & m0);  // 4:1 select tree
-        match = (M2[j] & m2) | (~M2[j] & match);
-        match = (M3[j] & m3) | (~M3[j] & match);
-        const uint32_t sumw = lane_add<B>(st[j], match);
-        const uint32_t cvec = (st[j] & match) | ((st[j] | match) & ~sumw);
-        // reset = sign(cvec) ^ sign(match); hit = sign(cvec) & !sign(match)
-        const uint32_t reset = sign_mask<B>(cvec ^ match);
-        const uint32_t hit = (cvec & ~match & Ln::H) >> (8 * B - 1);
-        bits[j] = ((bits[j] << 1) & ~Ln::LSB) | hit;  // bits + bits + hit
-        st[j] = sumw & ~reset;
-      }
-      if (++f == kNarrowFlush) {
-        f = 0;
+    for (int j = 0; j < kFieldWords; ++j) {  // one-hot of the winning symbol
+      e3[j] = nonzero_fields(e3[j]);
+      e2[j] = nonzero_fields(e2[j]) & ~e3[j];
+      st[j] = nonzero_fields(e1[j]);  // where(i1, 1, 0)
+      e1[j] = st[j] & ~(e2[j] | e3[j]);
+      bits[j] = 0;
+      acc[j] = 0;
+    }
+    const uint32_t keep = K < kNarrowFlush ? (0xFFu >> K) * kFM : 0u;
+    for (int r = 0; r < reps; ++r) {
+      const int4* srow = s_rows + (r % kNS) * K;
 #pragma unroll
-        for (int j = 0; j < kWords; ++j) {
-          acc[j] ^= bits[j];
-          bits[j] = 0;
+      for (int j = 0; j < kFieldWords; ++j) bits[j] &= keep;
+      int f = 0;
+#pragma unroll 1
+      for (int k = 0; k < K; ++k) {
+        const int4 m = srow[k];
+        const uint32_t c = m.x, d1 = m.y, d2 = m.z, d3 = m.w;
+#pragma unroll
+        for (int j = 0; j < kFieldWords; ++j) {
+          const uint32_t w = st[j] + c + e1[j] * d1 + e2[j] * d2 + e3[j] * d3;
+          const uint32_t t9 = w >> 9;
+          bits[j] = bits[j] * 2 + (t9 & kFM);
+          st[j] = w & ((((w >> 8) & ~t9) & kFM) * 255);
+        }
+        if (++f == kNarrowFlush) {
+          f = 0;
+#pragma unroll
+          for (int j = 0; j < kFieldWords; ++j) {
+            acc[j] ^= bits[j];
+            bits[j] = 0;
+          }
         }
       }
     }
-  }
-  int32_t res[kWords];
 #pragma unroll
-  for (int j = 0; j < kWords; ++j)
-    res[j] = (int32_t)lane_add<B>(lane_add<B>(st[j], bits[j]), acc[j]);
-  store16(out + (long long)blockIdx.x * nthreads * kWords + base, res);
+    for (int j = 0; j < kFieldWords; ++j) st[j] += bits[j] + acc[j];
+    store_fields(out, sp, st);
+  } else {
+    const int base = tid * kWords;
+    int32_t in[kWords];
+    uint32_t st[kWords], bits[kWords], acc[kWords];
+    uint32_t e1[kWords], e2[kWords], e3[kWords];
+    load16(i3g + base, in);
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) e3[j] = nonzero_mask16((uint32_t)in[j]);
+    load16(i2g + base, in);
+#pragma unroll
+    for (int j = 0; j < kWords; ++j)
+      e2[j] = nonzero_mask16((uint32_t)in[j]) & ~e3[j];
+    load16(i1g + base, in);
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) {  // one-hot LSBs of the winning symbol
+      const uint32_t n1 = nonzero_mask16((uint32_t)in[j]);
+      e1[j] = n1 & ~(e2[j] | e3[j]) & kLsb16;
+      e2[j] &= kLsb16;
+      e3[j] &= kLsb16;
+      st[j] = n1 & kLsb16;  // where(i1, 1, 0)
+      bits[j] = 0;
+      acc[j] = 0;
+    }
+    const uint32_t keep =
+        K < kNarrowFlush ? (0xFFFFu >> K) * kLsb16 : 0xFFFFFFFFu;
+    for (int r = 0; r < reps; ++r) {
+      const int4* srow = s_rows + (r % kNS) * K;
+#pragma unroll
+      for (int j = 0; j < kWords; ++j) bits[j] &= keep;
+      int f = 0;
+#pragma unroll 1
+      for (int k = 0; k < K; ++k) {
+        const int4 m = srow[k];
+        const uint32_t c = m.x, d1 = m.y, d2 = m.z, d3 = m.w;
+#pragma unroll
+        for (int j = 0; j < kWords; ++j) {
+          const uint32_t mt = c + e1[j] * d1 + e2[j] * d2 + e3[j] * d3;
+          const uint32_t s = add16x2(st[j], mt);
+          // Sign bits: carry-out ^ match sign = reset; & !match sign = hit.
+          const uint32_t x = ((st[j] & mt) | ((st[j] | mt) & ~s)) ^ mt;
+          bits[j] = bits[j] * 2 + (hit_bits16(x, mt) >> 15);
+          st[j] = s & ~sign_mask16(x);
+        }
+        if (++f == kNarrowFlush) {
+          f = 0;
+#pragma unroll
+          for (int j = 0; j < kWords; ++j) {
+            acc[j] ^= bits[j];
+            bits[j] = 0;
+          }
+        }
+      }
+    }
+    int32_t res[kWords];
+#pragma unroll
+    for (int j = 0; j < kWords; ++j)
+      res[j] = (int32_t)add16x2(add16x2(st[j], bits[j]), acc[j]);
+    store16(out + (long long)blockIdx.x * nthreads * kWords + base, res);
+  }
 }
 
 // stripmatch: replaces `kernel_strip` (tools/roofline.py:323, launched at
@@ -651,14 +843,16 @@ mxu_mix_kernel(const uint8_t* __restrict__ scores,
 
 using OpMixFn = void (*)(const int32_t*, const int32_t*, const int32_t*,
                          const int32_t*, int, int, int32_t*);
-using AddFn = void (*)(const int32_t*, int, int, int32_t*);
+using AddFn = void (*)(const int32_t*, int, int, int, int, int32_t*);
+using NarrowFn = void (*)(const int32_t*, const int32_t*, const int32_t*,
+                          const int32_t*, int, int, int, int, int32_t*);
 
 const OpMixFn kOpMix[kNumVariants] = {
     op_mix_kernel<kCurrent>, op_mix_kernel<kPerrow>, op_mix_kernel<kLeanhit>,
     op_mix_kernel<kNomatch>, op_mix_kernel<kNoroll>, op_mix_kernel<kAddonly>,
     op_mix_kernel<kMulcost>, op_mix_kernel<kAndmatch>};
 const AddFn kAdd[2] = {add_chain_kernel<1>, add_chain_kernel<2>};
-const OpMixFn kNarrow[2] = {narrow_mix_kernel<1>, narrow_mix_kernel<2>};
+const NarrowFn kNarrow[2] = {narrow_mix_kernel<1>, narrow_mix_kernel<2>};
 using MxuFn = void (*)(const uint8_t*, const uint8_t*, int, int, int32_t*);
 const MxuFn kMxu[2] = {mxu_mix_kernel<1>, mxu_mix_kernel<2>};
 
@@ -671,6 +865,18 @@ size_t op_mix_smem(int k) {
   return sizeof(int32_t) * (kNS * k * 4 + 2 * kMaxWarps + 2 * (k + 1));
 }
 size_t narrow_smem(int k) { return sizeof(int32_t) * kNS * k * 4; }
+
+// The narrow kernels' block: B = 1 spreads the copies' WS * 512 lanes each
+// over kFieldThreads-thread blocks, kFieldLanes lanes a thread; B = 2 runs
+// one instance a block, WS * 8 threads.
+int narrow_threads(int bytes, int ws) {
+  return bytes == 1 ? kFieldThreads : ws * 128 / kWords;
+}
+int narrow_blocks(int bytes, int ws, int copies) {
+  if (bytes != 1) return copies;
+  const long long per_block = (long long)kFieldThreads * kFieldLanes;
+  return (int)((512LL * ws * copies + per_block - 1) / per_block);
+}
 size_t strip_smem(int ws, int k) {  // scores, edges, K match planes
   return sizeof(int32_t) * (kNS * k * 4 + 2 * kMaxWarps) +
          sizeof(int4) * (size_t)k * 4 * (ws * 128 / kWords);
@@ -699,7 +905,8 @@ cudaError_t allow_smem(F fn, size_t bytes) {
 }  // namespace
 
 // Each returns 0 or a cudaError_t; launches on `stream`, does not
-// synchronise. The block is WS * 8 threads; `copies` blocks.
+// synchronise. The block is WS * 8 threads; `copies` blocks (the int8
+// narrow kernels: narrow_blocks of kFieldThreads threads).
 extern "C" int hv_roofline_op_mix(int variant, const int32_t* scores,
                                   const int32_t* i1, const int32_t* i2,
                                   const int32_t* i3, int ws, int k, int reps,
@@ -717,7 +924,8 @@ extern "C" int hv_roofline_add_chain(int bytes, const int32_t* i1, int ws,
                                      cudaStream_t stream) {
   if ((bytes != 1 && bytes != 2) || bad_shape(ws, k, reps, copies))
     return cudaErrorInvalidValue;
-  kAdd[bytes - 1]<<<copies, ws * 128 / kWords, 0, stream>>>(i1, k, reps, out);
+  kAdd[bytes - 1]<<<narrow_blocks(bytes, ws, copies), narrow_threads(bytes, ws),
+                    0, stream>>>(i1, ws, k, reps, copies, out);
   return cudaGetLastError();
 }
 
@@ -728,8 +936,9 @@ extern "C" int hv_roofline_narrow_mix(int bytes, const int32_t* scores,
                                       cudaStream_t stream) {
   if ((bytes != 1 && bytes != 2) || bad_shape(ws, k, reps, copies))
     return cudaErrorInvalidValue;
-  kNarrow[bytes - 1]<<<copies, ws * 128 / kWords, narrow_smem(k), stream>>>(
-      scores, i1, i2, i3, k, reps, out);
+  kNarrow[bytes - 1]<<<narrow_blocks(bytes, ws, copies),
+                       narrow_threads(bytes, ws), narrow_smem(k), stream>>>(
+      scores, i1, i2, i3, ws, k, reps, copies, out);
   return cudaGetLastError();
 }
 
@@ -765,9 +974,28 @@ extern "C" int hv_roofline_mxu(int bytes, const void* scores,
   return cudaGetLastError();
 }
 
+// add16's halfword add on n word pairs: out = add.u16x2(a, b), for the
+// card test that holds it to a wrapping add on every pair of halfwords.
+__global__ void add16x2_kernel(const uint32_t* __restrict__ a,
+                               const uint32_t* __restrict__ b, long long n,
+                               uint32_t* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = add16x2(a[i], b[i]);
+}
+
+extern "C" int hv_roofline_add16x2(const uint32_t* a, const uint32_t* b,
+                                   long long n, uint32_t* out,
+                                   cudaStream_t stream) {
+  if (n < 0) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  add16x2_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(a, b, n,
+                                                                  out);
+  return cudaGetLastError();
+}
+
 // Resident blocks per SM for one kernel (0 op_mix with `which` the variant,
 // 1 add_chain / 2 narrow_mix / 4 mxu with `which` the lane or input bytes,
-// 3 strip) at (ws, k).
+// 3 strip) at (ws, k), at the kernel's own block size (narrow_threads).
 extern "C" int hv_roofline_blocks_per_sm(int kernel, int which, int ws, int k,
                                          int* blocks) {
   if (bad_shape(ws, k, 0, 1)) return cudaErrorInvalidValue;
@@ -790,9 +1018,9 @@ extern "C" int hv_roofline_blocks_per_sm(int kernel, int which, int ws, int k,
         blocks, kOpMix[which], threads, op_mix_smem(k));
   if ((which == 1 || which == 2) && kernel == 1)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, kAdd[which - 1], threads, 0);
+        blocks, kAdd[which - 1], narrow_threads(which, ws), 0);
   if ((which == 1 || which == 2) && kernel == 2)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, kNarrow[which - 1], threads, narrow_smem(k));
+        blocks, kNarrow[which - 1], narrow_threads(which, ws), narrow_smem(k));
   return cudaErrorInvalidValue;
 }

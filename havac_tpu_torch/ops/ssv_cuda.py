@@ -127,6 +127,7 @@ def load_library() -> ctypes.CDLL:
                                                    p, p]),
                     ("hv_roofline_strip", i, [p, p, p, p, i, i, i, i, p, p]),
                     ("hv_roofline_mxu", i, [i, p, p, i, i, i, i, p, p]),
+                    ("hv_roofline_add16x2", i, [p, p, i64, p, p]),
                     ("hv_roofline_blocks_per_sm", i,
                      [i, i, i, i, ctypes.POINTER(i)])):
                 getattr(lib, fn).restype = restype

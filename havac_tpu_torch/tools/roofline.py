@@ -36,8 +36,8 @@ Usage::
         [--lo 64] [--hi 4160] [--iters 5] [--copies N]
         [--variants current perrow ...] [--device cuda|cpu] [--json out.json]
 
-On ``cuda`` the kernels run (``--copies`` defaults to the card's SMs times
-the resident blocks per SM) and a variant whose rate would need more integer
+On ``cuda`` the kernels run (``--copies`` defaults to :func:`fill_copies`,
+the copies that fill the card once) and a variant whose rate would need more integer
 operations than the card can issue fails the run; ``cpu`` times the plain
 versions (defaults ``--lo 1 --hi 3``).
 """
@@ -83,6 +83,12 @@ ROOFLINE_LAUNCHES = dict.fromkeys(KERNELS, 0)  # CUDA launches per kernel
 
 MAX_WS = 64  # one instance per block: 512 threads of 16 words
 MAX_ROWS = 128
+# add8 / int8mix keep three int8 lanes in the 10-bit fields of a word; their
+# lanes are independent, so their kernels spread the copies' lanes over
+# 256-thread blocks, 48 lanes (16 field words) a thread.
+FIELD_VARIANTS = ("add8", "int8mix")
+FIELD_THREADS = 256
+FIELD_LANES = 48
 # Variants whose shared memory grows with WS (the strip's planes, the
 # warps' rings of match words): the kernel library decides how large a WS
 # fits a block.
@@ -96,7 +102,21 @@ SMEM_VARIANTS = ("stripmatch",) + MXU_VARIANTS
 MIN_OPS = {
     "current": (11, 3), "perrow": (11, 3), "noroll": (11, 3),
     "leanhit": (10, 3), "nomatch": (8, 3), "andmatch": (12, 6),
-    "addonly": (2, 1), "mulcost": (2, 1), "add8": (2, 1), "add16": (2, 1),
+    "addonly": (2, 1), "mulcost": (2, 1),
+    # add8 / add16, a 32-bit word's 4 int8 or 2 int16 lanes: an instruction
+    # writes at most 32 bits, and (s + i) ^ s folds into nothing, so a word
+    # and row takes at least one add and one xor, the xor a logic op, for
+    # any layout of the lanes (packed, or 3 a word in fields: more words).
+    "add8": (2, 1), "add16": (2, 1),
+    # int8mix / int16mix, a word's lanes and row, any layout: the 4:1
+    # select (one PRMT of the row's four scores at the word's selector at
+    # best), the add, the carry-out (one LOP3 of state, match and sum), the
+    # reset lanes' mask (one instruction, an IMAD at best), the state (one
+    # LOP3), the hit (one LOP3: carry and not the match's sign), the hit
+    # moved to the lane's bit 0 (a right shift) and 2 bits + hit (an IMAD):
+    # 8, of which the PRMT, the three LOP3s and the shift have no FMA-pipe
+    # form. The flush (one xor in 8 rows) is left out. A field layout, 3
+    # lanes a word, needs 4/3 as many of each per 4 int8 lanes.
     "int8mix": (8, 5), "int16mix": (8, 5),
     # stripmatch: `current` with the 3 match IMADs moved to the per-rep
     # plane build (still 3 a word and row), the row keeping its add (1),
@@ -539,6 +559,17 @@ def blocks_per_sm(name: str, ws: int, k: int) -> int:
     return n
 
 
+def fill_copies(name: str, ws: int, k: int, sms: int) -> int:
+    """The copies that fill the card once: SMs x resident blocks where a
+    block runs one instance; for :data:`FIELD_VARIANTS`, whose blocks share
+    the copies' lanes, the copies whose lanes the resident threads hold (99
+    at WS 64 on 132 SMs), at least 1."""
+    blocks = blocks_per_sm(name, ws, k)
+    if name not in FIELD_VARIANTS:
+        return sms * blocks
+    return max(1, sms * blocks * FIELD_THREADS * FIELD_LANES // (ws * 512))
+
+
 # ---------------------------------------------------------------- timing
 
 def _seconds(fn: Callable[[], object], device: torch.device) -> float:
@@ -652,8 +683,8 @@ def main(argv=None) -> int:
                     help="high rep count (default 4160 on cuda, 3 on cpu)")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--copies", type=int, default=None,
-                    help="instances per launch (default: SMs x resident "
-                         "blocks per SM on cuda, 1 on cpu)")
+                    help="instances per launch (default: fill_copies on "
+                         "cuda, 1 on cpu)")
     ap.add_argument("--variants", nargs="*", default=list(VARIANTS))
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--json", default=None)
@@ -677,7 +708,7 @@ def main(argv=None) -> int:
         _check_name(name)
         ws = args.ws or (max_ws(name, args.rows) if cuda else MAX_WS)
         copies = args.copies or (
-            card.sms * blocks_per_sm(name, ws, args.rows) if cuda else 1)
+            fill_copies(name, ws, args.rows, card.sms) if cuda else 1)
         r = run_variant(name, ws, args.rows, lo, hi, args.iters, device,
                         copies, card)
         results[name] = r

@@ -317,3 +317,64 @@ def test_mxu_kernels_match_plain_at_ws_12(dev, name):
         want = roofline.op_mix_plain(name, x, reps)
         for c in range(4):
             assert torch.equal(got[c], want), (name, reps, c)
+
+
+@pytest.mark.parametrize("name", ["add8", "add16", "int8mix", "int16mix"])
+@pytest.mark.parametrize("ws", [4, 12, 60, 64])
+def test_narrow_kernels_at_the_layout_edges(dev, name, ws):
+    """The narrow kernels equal their plain versions exactly, every one of 5
+    copies, at reps 0-3 and K 1, 7 and 30: K < 8 keeps `bits` across reps
+    (no flush), K = 30 leaves 6 rows a rep past its last flush. In the int8
+    field layout (48 lanes a thread) 5 copies at WS 4 and 64 end in a thread
+    that holds 16 of its lanes, and a thread's lanes cross from one copy
+    into the next; at WS 12 and 60 they do not."""
+    kernel = roofline.KERNEL_OF[name]
+    for k in (1, 7, 30):
+        x = roofline.make_inputs(name, ws, k, dev)
+        for reps in range(4):
+            before = roofline.ROOFLINE_LAUNCHES[kernel]
+            got = roofline.op_mix(x, reps, copies=5)
+            torch.cuda.synchronize()
+            assert roofline.ROOFLINE_LAUNCHES[kernel] == before + 1
+            want = roofline.op_mix_plain(name, x, reps)
+            for c in range(5):
+                assert torch.equal(got[c], want), (name, ws, k, reps, c)
+
+
+def test_narrow_kernels_fill_the_card(dev):
+    """fill_copies: one instance a block for add16 / int16mix; for the int8
+    field kernels the copies whose lanes the resident threads hold."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name in ("add8", "add16", "int8mix", "int16mix"):
+        blocks = roofline.blocks_per_sm(name, 64, 30)
+        copies = roofline.fill_copies(name, 64, 30, sms)
+        if name in roofline.FIELD_VARIANTS:
+            lanes = sms * blocks * roofline.FIELD_THREADS * roofline.FIELD_LANES
+            assert copies == lanes // (64 * 512) >= 1
+        else:
+            assert copies == sms * blocks
+
+
+def test_add16x2_wraps_every_halfword_pair(dev):
+    """add16's add.u16x2 (SASS VIADD.16x2) on every pair of 16-bit values,
+    in both halfwords, against the plain wrapping add, 2^28 pairs a launch."""
+    lib = ssv_cuda.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    i = torch.arange(1 << 16, dtype=torch.int64, device=dev)
+    step = 1 << 12
+    for s0 in range(0, 1 << 16, step):
+        s = torch.arange(s0, s0 + step, dtype=torch.int64, device=dev)
+        lo = s.repeat_interleave(1 << 16)
+        hi = i.repeat(step)
+        a = lo | (hi << 16)  # the high halfwords take the pair swapped
+        b = hi | (lo << 16)
+        want = ((lo + hi) & 0xFFFF) * 0x10001
+        a32 = (a - ((a >> 31) << 32)).to(torch.int32)
+        b32 = (b - ((b >> 31) << 32)).to(torch.int32)
+        out = torch.empty_like(a32)
+        rc = lib.hv_roofline_add16x2(a32.data_ptr(), b32.data_ptr(),
+                                     a32.numel(), out.data_ptr(), stream)
+        assert rc == 0
+        got = out.to(torch.int64) & 0xFFFFFFFF
+        assert torch.equal(got, want), s0
+        del lo, hi, a, b, a32, b32, out, got, want

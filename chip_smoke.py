@@ -54,19 +54,20 @@ Phases (each prints its own lines; any failure exits non-zero):
 8. roofline — the op-mix roofline kernels of havac_tpu_torch/csrc/roofline.cu
              (roofline_op_mix, roofline_add_chain, roofline_narrow_mix,
              roofline_strip, roofline_mxu) at K = 30, each variant at its
-             largest WS (64; 12 for stripmatch, whose planes live in shared
-             memory; 48 for mxumatch / mxumatch8, whose warps' rings of
-             packed match words do): every copy of every one of the 15
-             variants against its plain version on the card, exactly, at
-             reps 1-3 (the three match-precompute variants also at WS 8,
-             mxumatch* at WS 12 too); the plain versions' times; then the
-             tool's own entry point (``python -m
+             largest WS (64; 48 for mxumatch / mxumatch8, whose warps'
+             rings of packed match words live in shared memory): every copy
+             of every one of the 15 variants against its plain version on
+             the card, exactly, at reps 1-3 (the three match-precompute
+             variants also at WS 12 and 8); the plain versions' times; then
+             the tool's own entry point (``python -m
              havac_tpu_torch.tools.roofline``) times each kernel
-             differentially, ``current`` again at WS 12 beside stripmatch,
-             and mxumatch* at WS 8, 12 and 48 beside ``current`` at the
-             same WS, with warps an SM and SASS a word and row; it fails a
-             variant whose rate would need more instructions than the card
-             issues. The narrow variants (add8, add16, int8mix, int16mix)
+             differentially, stripmatch beside ``current`` at WS 64 and at
+             WS 12 (filling the card, and at 132 copies), and mxumatch* at
+             WS 8, 12 and 48 beside ``current`` at the same WS, with warps
+             an SM and SASS a word and row (stripmatch's with its
+             shared-memory bytes a clock); it fails a variant whose rate
+             would need more instructions than the card issues, and a
+             stripmatch whose row loop stores no plane or loads none. The narrow variants (add8, add16, int8mix, int16mix)
              print their row loops' SASS a 32-bit word and row split by
              pipe, with the issue and INT32 shares it implies, beside
              `current`'s; add16 and int16mix their bounds (the kernels
@@ -96,6 +97,7 @@ import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -140,6 +142,7 @@ ROOFLINE_SHOWN = {"roofline_op_mix": "current", "roofline_add_chain": "add8",
 ROOFLINE_ROWS = 30
 ROOFLINE_LO, ROOFLINE_HI = 64, 4160
 MATCH_PRECOMPUTE = ("stripmatch", "mxumatch", "mxumatch8")
+STRIP_SMALL_WS = 12  # the largest WS whose K = 30 planes all fit a block
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 
 
@@ -321,14 +324,18 @@ def sweep_sass() -> dict:
     return out
 
 
-def roofline_sass() -> tuple[dict, dict]:
+def roofline_sass() -> tuple[dict, dict, dict]:
     """SASS a word and row of `current` (op_mix_kernel<0>: its row loop, one
-    barrier a row, over a thread's 16 words) and of mxumatch8 / mxumatch
-    (mxu_mix_kernel<1> / <2>: the tile loop, 3 products a tile, over a
-    group's 32 tiles, plus the row loop over the group's 8 rows, all over
-    the group's 8 rows x 16 words); and of the narrow variants (add8, add16,
-    int8mix, int16mix: their row loops a 32-bit output word, split by pipe,
-    as ``havac_tpu_torch.tools.narrow_time`` counts them)."""
+    barrier a row, over a thread's 16 words), of stripmatch
+    (strip_mix_kernel: its row loop, one barrier a row, which also builds
+    a plane ahead, over a thread's 16 words; the loop must store that plane
+    and load the row's, or the probe prices nothing) and of
+    mxumatch8 / mxumatch (mxu_mix_kernel<1> / <2>: the tile loop, 3
+    products a tile, over a group's 32 tiles, plus the row loop over the
+    group's 8 rows, all over the group's 8 rows x 16 words); and of the
+    narrow variants (add8, add16, int8mix, int16mix: their row loops a
+    32-bit output word, split by pipe, as
+    ``havac_tpu_torch.tools.narrow_time`` counts them)."""
     kernels = sass.parse(sass.disassemble(ssv_cuda.library_path()))
     narrow = {name: narrow_time.row_sass(kernels, name)
               for name in narrow_time.NARROW}
@@ -340,6 +347,17 @@ def roofline_sass() -> tuple[dict, dict]:
     row = min(n for _, _, c, n in loops_of("op_mix_kernelILi0E")
               if c["bar"] == 1)
     out = {"current": row / 16}
+    kernel = kernels[next(n for n in kernels if "strip_mix_kernel" in n)]
+    start, end, _, n = min((loop for loop in sass.loops(kernel)
+                            if loop[2]["bar"] == 1), key=lambda x: x[3])
+    ops = Counter(op for a, op, _ in kernel["insns"] if start <= a <= end)
+    if ops["STS"] < 4 or ops["LDS"] < 4:  # a plane's 4 STS.128 / LDS.128
+        raise AssertionError(f"strip_mix_kernel's row loop: {ops['STS']} STS, "
+                             f"{ops['LDS']} LDS (4 each at least)")
+    strip = {"loop": n / 16, "sts": ops["STS"], "lds": ops["LDS"],
+             "imad": ops["IMAD"] / 16,
+             "pass": sass.fast_path(kernel, start, end)["total"] / 16}
+    out["stripmatch"] = strip["loop"]
     for name, b in (("mxumatch8", 1), ("mxumatch", 2)):
         ls = loops_of(f"mxu_mix_kernelILi{b}E")
         tile_n, mma = min((n, c["mma"]) for _, _, c, n in ls
@@ -348,7 +366,7 @@ def roofline_sass() -> tuple[dict, dict]:
         out[name] = (tile_n * 32 / (mma / 3) + row_n * 8) / (8 * 16)
     for name, n in narrow.items():
         out[name] = n["total"]
-    return out, narrow
+    return out, narrow, strip
 
 
 def phase_percell(dev, engine, smi, dump_sass: float) -> dict:
@@ -666,8 +684,7 @@ def phase_roofline(dev, smi, card, main_gcups):
     plain = {}
     for name in roofline.VARIANTS:
         top = roofline.max_ws(name, k)
-        wss = ((top, 12, 8) if name in roofline.MXU_VARIANTS
-               else (top, 8) if name in MATCH_PRECOMPUTE else (top,))
+        wss = (top, 12, 8) if name in MATCH_PRECOMPUTE else (top,)
         for ws in dict.fromkeys(wss):
             x = roofline.make_inputs(name, ws, k, dev)
             copies = roofline.fill_copies(name, ws, k, card.sms)
@@ -690,14 +707,17 @@ def phase_roofline(dev, smi, card, main_gcups):
         log(f"[roofline] {name}: plain {plain[name] * 1e3:.4f} ms/rep at "
             f"WS {top}")
 
-    # The tool: every variant at its largest WS, then `current` at the
-    # match-precompute variants' WS (like against like), filling the card
-    # and at their one block per SM.
-    ws_small = roofline.max_ws(MATCH_PRECOMPUTE[0], k)
+    # The tool: every variant at its largest WS, then stripmatch and
+    # `current` at WS 12 (like against like), filling the card and at one
+    # block an SM (the most that all K = 30 planes in a block allowed), and
+    # mxumatch* beside
+    # `current` at WS 8, 12 and 48.
+    ws_small = STRIP_SMALL_WS
     mxu_top = roofline.max_ws("mxumatch", k)
     span = ["--rows", str(k), "--lo", str(ROOFLINE_LO), "--hi",
             str(ROOFLINE_HI)]
-    small = span + ["--ws", str(ws_small), "--variants", "current"]
+    small = span + ["--ws", str(ws_small), "--variants", "current",
+                    "stripmatch"]
     mxu = list(roofline.MXU_VARIANTS)
     argvs = [span, small, small + ["--copies", str(card.sms)],
              span + ["--ws", "8", "--variants", "current", *mxu],
@@ -728,22 +748,36 @@ def phase_roofline(dev, smi, card, main_gcups):
             f"share {r['issue_share']:.3f}, INT32 share "
             f"{r['int32_share']:.3f}), plain {plain[name] * 1e3:.4f} ms/rep "
             f"(1 instance); {smi}")
-    for cur in (small["current"], one_block["current"]):
-        log(f"[roofline] current: WS {cur['ws']}, kernel "
-            f"{cur['sec_per_rep'] * 1e3:.6f} ms/rep ({cur['copies']} copies, "
-            f"{cur['gcups_equiv_card']:.2f} GCUPS-equiv on the card, issue "
-            f"share {cur['issue_share']:.3f}); {smi}")
-        for name in MATCH_PRECOMPUTE:
-            g = results[name]["gcups_equiv_card"]
-            log(f"[roofline] {name} / current at WS {ws_small}, "
-                f"{cur['copies']} copies: {g / cur['gcups_equiv_card']:.4f}")
-    # mxumatch* beside `current` at the same WS, with warps an SM and SASS.
-    per_word, narrow = roofline_sass()
+    per_word, narrow, strip = roofline_sass()
     log(f"[roofline] SASS a word and row: " + ", ".join(
         f"{n} {v:.4f}" for n, v in per_word.items()))
+    clk = card.sms * card.max_sm_mhz * 1e6
+    # stripmatch beside `current` at the same WS and copies, with warps an
+    # SM, its loops' SASS and its shared-memory traffic (a 16-byte store
+    # and load per 4 words and row: 8 B a word and row).
+    log(f"[roofline] stripmatch SASS a word and row: its row loop, which "
+        f"also builds a plane ahead, {strip['loop']:.4f} "
+        f"({strip['imad']:.4f} IMAD; {strip['sts']} STS and {strip['lds']} "
+        f"LDS a row; forward-branch pass {strip['pass']:.4f}) against "
+        f"current's {per_word['current']:.4f}")
+    for run in (results, small, one_block):
+        r, cur = run["stripmatch"], run["current"]
+        ws, copies = r["ws"], r["copies"]
+        words_s = copies * k * ws * 128 / r["sec_per_rep"]
+        blocks = min(roofline.blocks_per_sm("stripmatch", ws, k),
+                     -(-copies // card.sms))
+        log(f"[roofline] stripmatch at WS {ws}, {copies} copies: "
+            f"{r['sec_per_rep'] * 1e3:.6f} ms/rep, "
+            f"{r['gcups_equiv_card']:.2f} GCUPS-equiv = "
+            f"{r['gcups_equiv_card'] / cur['gcups_equiv_card']:.4f} of "
+            f"current's {cur['gcups_equiv_card']:.2f} ({cur['copies']} "
+            f"copies, {cur['sec_per_rep'] * 1e3:.6f} ms/rep); {blocks * ws // 4}"
+            f" warps an SM; SASS issue share "
+            f"{per_word['stripmatch'] * words_s / (roofline.ISSUE_LANES_PER_SM * clk):.4f}"
+            f"; shared memory {8 * words_s / clk:.2f} B a clock an SM of 128; "
+            f"{smi}")
     # The narrow variants beside `current`: SASS a 32-bit word and row, and
     # the issue and INT32 shares their measured rates imply.
-    clk = card.sms * card.max_sm_mhz * 1e6
     for name in ("current", *narrow_time.NARROW):
         r = results[name]
         words_s = r["copies"] * k * r["ws"] * 128 / r["sec_per_rep"]

@@ -17,8 +17,9 @@
 //                         wrapping add, carry-out logic), a flush every 8
 //                         rows.
 //   strip_mix_kernel      replaces `kernel_strip` (:323, launched at :373):
-//                         stripmatch, `current` with the strip's K match
-//                         planes built once a rep into shared memory.
+//                         stripmatch, `current` with the strip's match
+//                         planes built a chunk of rows ahead into a
+//                         per-thread ring in shared memory.
 //   mxu_mix_kernel<B>     replaces `kernel_mxu` (:409, launched at :464):
 //                         mxumatch (bf16) / mxumatch8 (int8), the match
 //                         words from tensor-core products (mma.sync),
@@ -587,14 +588,52 @@ narrow_mix_kernel(const int32_t* __restrict__ scores,
 }
 
 // stripmatch: replaces `kernel_strip` (tools/roofline.py:323, launched at
-// :373). Each rep first builds the strip's K match planes (`current`'s
-// match construction) into shared memory, then runs `current`'s row update
-// with the match as one shared-memory load. A thread writes and reads only
-// its own words, stored [k][quad][thread] as int4 so that a warp's 16-byte
-// accesses are conflict-free; no barrier separates the two phases. The
-// planes take K * WS * 512 bytes of the block's 232,448: WS <= 12 at K = 30
-// (the TPU kernel held them in VMEM). Bound: issue, plus shared-memory
-// bandwidth (one 16-byte store and load per 4 words and row).
+// :373): the strip's match planes (`current`'s match construction) are
+// built into scratch, and `current`'s row update reads its match back as
+// one load. Bound: issue, plus shared-memory bandwidth (one 16-byte store
+// and one load per 4 words and row, 8 B a word and row).
+//
+// Design: nothing needs all K planes at once (the TPU kernel held them in
+// VMEM; in a block's shared memory they would allow WS <= 12 at K = 30, one
+// 3-warp block an SM), because a thread stores and loads only its own
+// words. So each thread keeps a ring of kStripAhead planes and builds each
+// row's plane kStripAhead rows before the row reads it, over the rows of
+// all reps in order (ahead of a rep's last row come the next rep's, at its
+// strip). The ring is the warp's, [slot][quad][lane] as int4: a warp's
+// 16-byte stores and loads are conflict-free and a quad is an immediate
+// offset from one address (a [slot][quad][thread] ring spent four address
+// registers and spilled). It takes kStripAhead * 64 B a thread at any K,
+// so WS 64 runs one 512-thread block an SM (16 warps, the register limit
+// `current` runs at) and WS 12 five. A row loads its plane before the
+// roll's barrier (`left_word`, one barrier a row, what `current` pays),
+// then builds the next plane into the slot it emptied and runs its update
+// in one basic block: the build's 3 IMADs a word (FMA pipe) interleave
+// with the update's shifts and LOP3s (INT32 pipe), as `current`'s match
+// does. (Built a chunk of rows at a time apart from the rows, the IMAD-only
+// build and the LOP3-heavy rows each ran on one pipe: 1.47x `current`'s
+// time; a 2-slot ring whose row loads the next plane at its end ran 1.09x
+// this one's, PERF.md.) The rows' scalars {c,
+// d1, d2, d3} are built once a block into shared memory, as the narrow
+// kernels' are; the last kStripAhead builds fill slots no row reads.
+constexpr int kStripAhead = 1;  // ring slots a thread
+
+__device__ __forceinline__ void build_plane(int4* slot, int4 m,
+                                            const int32_t (&a1)[kWords],
+                                            const int32_t (&a2)[kWords],
+                                            const int32_t (&a3)[kWords]) {
+#pragma unroll
+  for (int q = 0; q < kWords / 4; ++q) {
+    int32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 4 * q + e;
+      w[e] = add(add(m.x, mul(a1[j], m.y)),
+                 add(mul(a2[j], m.z), mul(a3[j], m.w)));
+    }
+    slot[q * 32] = make_int4(w[0], w[1], w[2], w[3]);
+  }
+}
+
 __global__ void __launch_bounds__(kMaxThreads, 1)
 strip_mix_kernel(const int32_t* __restrict__ scores,
                  const int32_t* __restrict__ i1g,
@@ -602,11 +641,15 @@ strip_mix_kernel(const int32_t* __restrict__ scores,
                  const int32_t* __restrict__ i3g, int K, int reps,
                  int32_t* __restrict__ out) {
   extern __shared__ __align__(16) int32_t smem[];
-  int32_t* s_scores = smem;                  // kNS * K * 4
-  int32_t* s_edge = s_scores + kNS * K * 4;  // 2 * kMaxWarps
-  int4* s_planes = reinterpret_cast<int4*>(s_edge + 2 * kMaxWarps);
+  int4* s_rows = reinterpret_cast<int4*>(smem);  // (kNS, K) scalars
+  int32_t* s_edge = smem + kNS * K * 4;          // 2 * kMaxWarps
+  int4* s_ring = reinterpret_cast<int4*>(s_edge + 2 * kMaxWarps);
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  for (int x = tid; x < kNS * K * 4; x += nthreads) s_scores[x] = scores[x];
+  for (int x = tid; x < kNS * K; x += nthreads) {
+    const int32_t* m = scores + 4 * x;
+    s_rows[x] = make_int4(mul(m[0], kFM), sub(m[1], m[0]), sub(m[2], m[0]),
+                          sub(m[3], m[0]));
+  }
 
   const int base = tid * kWords;
   int32_t st[kWords], bits[kWords], acc[kWords], match[kWords];
@@ -622,33 +665,35 @@ strip_mix_kernel(const int32_t* __restrict__ scores,
   }
   __syncthreads();
 
+  // Row k of rep r takes the scalars at (r % kNS) * K + k; `ahead` walks
+  // them kStripAhead rows before the run, across reps.
+  const int4* const rows_end = s_rows + kNS * K;
+  const int4* ahead = s_rows;
+  // This warp's ring, [slot][quad][lane]: quad q of slot s at 32 (4 s + q).
+  int4* const ring =
+      s_ring + (tid >> 5) * (kStripAhead * 4 * 32) + (tid & 31);
+  int4* const ring_end = ring + 4 * 32 * kStripAhead;
+  for (int4* slot = ring; slot != ring_end; slot += 4 * 32) {
+    build_plane(slot, *ahead, a1, a2, a3);
+    if (++ahead == rows_end) ahead = s_rows;
+  }
+  int4* slot = ring;
   int buf = 0;
   for (int r = 0; r < reps; ++r) {
-    const int32_t* srow = s_scores + (r % kNS) * K * 4;
-    for (int k = 0; k < K; ++k) {  // phase 1: the strip's match planes
-      const int4 m = *reinterpret_cast<const int4*>(srow + 4 * k);
-      const int32_t c = mul(m.x, kFM);
-      const int32_t d1 = sub(m.y, m.x), d2 = sub(m.z, m.x),
-                    d3 = sub(m.w, m.x);
-#pragma unroll
-      for (int j = 0; j < kWords; ++j)
-        match[j] = add(add(c, mul(a1[j], d1)),
-                       add(mul(a2[j], d2), mul(a3[j], d3)));
-#pragma unroll
-      for (int q = 0; q < kWords / 4; ++q)
-        s_planes[(k * 4 + q) * nthreads + tid] =
-            make_int4(match[4 * q], match[4 * q + 1], match[4 * q + 2],
-                      match[4 * q + 3]);
-    }
     int f = 0;
-    for (int k = 0; k < K; ++k) {  // phase 2: the match is one load
-      const int32_t left = left_word(st[kWords - 1], s_edge, buf);
+#pragma unroll 1
+    for (int k = 0; k < K; ++k) {
 #pragma unroll
       for (int q = 0; q < kWords / 4; ++q) {
-        const int4 v = s_planes[(k * 4 + q) * nthreads + tid];
+        const int4 v = slot[q * 32];
         match[4 * q] = v.x; match[4 * q + 1] = v.y;
         match[4 * q + 2] = v.z; match[4 * q + 3] = v.w;
       }
+      const int32_t left = left_word(st[kWords - 1], s_edge, buf);
+      build_plane(slot, *ahead, a1, a2, a3);  // kStripAhead rows on
+      if (++ahead == rows_end) ahead = s_rows;
+      slot += 4 * 32;
+      if (slot == ring_end) slot = ring;
       row_update(st, bits, match, left);
       if (++f == kFlush) {
         f = 0;
@@ -877,9 +922,9 @@ int narrow_blocks(int bytes, int ws, int copies) {
   const long long per_block = (long long)kFieldThreads * kFieldLanes;
   return (int)((512LL * ws * copies + per_block - 1) / per_block);
 }
-size_t strip_smem(int ws, int k) {  // scores, edges, K match planes
+size_t strip_smem(int ws, int k) {  // row scalars, edges, rings
   return sizeof(int32_t) * (kNS * k * 4 + 2 * kMaxWarps) +
-         sizeof(int4) * (size_t)k * 4 * (ws * 128 / kWords);
+         sizeof(int4) * (size_t)kStripAhead * 4 * (ws * 128 / kWords);
 }
 size_t mxu_smem(int ws, int k, int bytes) {  // edges, rings, scores, codes
   const size_t sc = (size_t)kNS * k * 4 * bytes;
@@ -942,7 +987,8 @@ extern "C" int hv_roofline_narrow_mix(int bytes, const int32_t* scores,
   return cudaGetLastError();
 }
 
-// stripmatch; WS as shared memory allows (strip_smem).
+// stripmatch; the ring (strip_smem) fits WS 4..64 at every K 1..128 on an
+// H100; a refused launch returns its error.
 extern "C" int hv_roofline_strip(const int32_t* scores, const int32_t* i1,
                                  const int32_t* i2, const int32_t* i3, int ws,
                                  int k, int reps, int copies, int32_t* out,

@@ -5,8 +5,8 @@ roofline probes, ``roofline.cu``, whose wrapper is
 :mod:`havac_tpu_torch.tools.roofline`) is compiled with ``nvcc`` for sm_90a
 into one shared library with a plain C interface, at first use, under
 ``build/havac_tpu_torch/`` beside the package (keyed by a hash of the
-sources, so an edited ``.cu`` rebuilds), and bound with ``ctypes``
-(:func:`load_library`).
+sources, so an edited ``.cu`` rebuilds; one ``nvcc`` a source, all started
+together, then one link), and bound with ``ctypes`` (:func:`load_library`).
 
 :func:`launch` enqueues one sweep on the current CUDA stream without
 synchronising; :func:`ssv_sweep` is the synchronous form that reads the
@@ -88,6 +88,15 @@ def _nvcc() -> str:
     return found
 
 
+def compile_object(src: str, obj: str) -> subprocess.Popen:
+    """Start ``nvcc -c`` of one source into ``obj`` (the library's flags,
+    ptxas' report included); stdout carries nvcc's output."""
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    return subprocess.Popen([_nvcc(), *flags, "-c", "-o", obj, src],
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 def build() -> str:
     """Compile the kernel library if it is missing; returns its path."""
     global build_log, build_seconds
@@ -97,11 +106,29 @@ def build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
-                         capture_output=True, text=True, timeout=600)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    objs = [f"{tmp}.{i}.o" for i in range(len(_sources()))]
+    procs = []
+    try:
+        procs = [compile_object(src, obj)
+                 for src, obj in zip(_sources(), objs)]
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+        rc = max(p.returncode for p in procs)
+        if rc == 0:
+            res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *objs],
+                                 capture_output=True, text=True, timeout=600)
+            logs.append(res.stdout + res.stderr)
+            rc = res.returncode
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    build_log = "".join(logs)
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}):\n{build_log}")
     os.replace(tmp, path)
     build_seconds = time.perf_counter() - t0
     return path

@@ -19,14 +19,14 @@ Variants (the JAX tool's; see its docstring for what each prices):
   full row update on int8 / int16 (``roofline_narrow_mix``): int8mix,
       int16mix;
   match precompute (``roofline_strip``): stripmatch, ``current`` with the
-      strip's K match planes built once a rep into shared memory;
+      strip's match planes built a row ahead into a per-thread ring in
+      shared memory;
   match product (``roofline_mxu``): mxumatch (bf16) and mxumatch8 (int8),
       the match words of each flush of 10 rows from one tensor-core product
       (scores x one-hot), repacked into 10-bit fields.
 
-The last two keep per-rep planes or their warps' packed match words in
-shared memory, so they take a smaller WS than the others: :func:`max_ws`
-(12 for ``stripmatch``, 48 for ``mxumatch*`` at K = 30).
+``mxumatch*`` keep their warps' packed match words in shared memory, so
+they take a smaller WS than the others: :func:`max_ws` (48 at K = 30).
 ``mxumatch*`` need K a multiple of 10 (the JAX tool silently runs
 10 * (K // 10) rows and reports K).
 
@@ -89,10 +89,11 @@ MAX_ROWS = 128
 FIELD_VARIANTS = ("add8", "int8mix")
 FIELD_THREADS = 256
 FIELD_LANES = 48
-# Variants whose shared memory grows with WS (the strip's planes, the
-# warps' rings of match words): the kernel library decides how large a WS
-# fits a block.
-SMEM_VARIANTS = ("stripmatch",) + MXU_VARIANTS
+# Variants whose shared memory caps WS below MAX_WS (the warps' rings of
+# match words): the kernel library decides how large a WS fits a block.
+# stripmatch's ring (a plane a thread) fits WS 64 at every K; its launch
+# still fails loudly if the card refuses it.
+SMEM_VARIANTS = MXU_VARIANTS
 
 # Lower bounds on the integer instructions per 32-bit word and row that an
 # exact compile of each mix must issue, with Hopper's fusions (LOP3 takes any
@@ -118,8 +119,8 @@ MIN_OPS = {
     # form. The flush (one xor in 8 rows) is left out. A field layout, 3
     # lanes a word, needs 4/3 as many of each per 4 int8 lanes.
     "int8mix": (8, 5), "int16mix": (8, 5),
-    # stripmatch: `current` with the 3 match IMADs moved to the per-rep
-    # plane build (still 3 a word and row), the row keeping its add (1),
+    # stripmatch: `current` with the 3 match IMADs moved to the plane
+    # build (still 3 a word and row), the row keeping its add (1),
     # SHF (1), bits (2), keep mask (2) and state (2); plus one 16-byte
     # shared store (build) and load (row) per 4 words: 8 + 3 + 0.5.
     "stripmatch": (11.5, 3),
@@ -449,9 +450,9 @@ def _occupancy(name: str, ws: int, k: int) -> int:
 
 def max_ws(name: str, k: int = 30) -> int:
     """The largest WS the variant's kernel takes at K = k: MAX_WS, or for
-    ``stripmatch`` / ``mxumatch*`` the largest multiple of 4 whose planes
-    or match rings fit a block's shared memory, as the kernel library
-    reports it for the current card (12 and 48 at K = 30 on an H100)."""
+    ``mxumatch*`` the largest multiple of 4 whose match rings fit a block's
+    shared memory, as the kernel library reports it for the current card
+    (48 at K = 30 on an H100)."""
     _check_name(name)
     _check_rows(name, k)
     if name not in SMEM_VARIANTS:
@@ -673,7 +674,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ws", type=int, default=None,
                     help="sublane rows of the (WS, 128) buffer (default: "
-                         "each variant's max_ws on cuda, 64, 48 or 12 at "
+                         "each variant's max_ws on cuda, 64 or 48 at "
                          "K = 30; 64 on cpu)")
     ap.add_argument("--rows", type=int, default=30,
                     help="rows per rep (K)")

@@ -270,7 +270,7 @@ def test_scan_files_cuda_matches_cpu(dev, tmp_path):
 def test_roofline_kernels_match_plain(dev, name, ws):
     """Every copy of every roofline kernel equals the plain version exactly
     (zero tolerance), at reps 0-3, at WS 8 and at the variant's maximum WS
-    (64, or 12 for stripmatch, 48 for mxumatch*), K = 30 and 7 (10 for
+    (64, or 48 for mxumatch*), K = 30 and 7 (10 for
     mxumatch*, which run whole flushes)."""
     kernel = roofline.KERNEL_OF[name]
     ws = 8 if ws == "8" else roofline.max_ws(name, 30)
@@ -293,11 +293,14 @@ def test_roofline_kernel_refuses_what_it_cannot_hold(dev):
         roofline.op_mix(x, 1)
     assert roofline.blocks_per_sm("current", roofline.MAX_WS, 30) >= 1
     # The library's shared-memory sizes against the card's 232,448 B a
-    # block: the planes of stripmatch and a flush's product of mxumatch*.
-    assert roofline.max_ws("stripmatch", 10) == 44
+    # block: stripmatch's ring (a plane a thread) fits WS 64 at every K, the
+    # warps' match rings of mxumatch* cap them.
+    for k in (10, 30, roofline.MAX_ROWS):
+        assert roofline.max_ws("stripmatch", k) == roofline.MAX_WS
+        assert roofline.blocks_per_sm("stripmatch", roofline.MAX_WS, k) >= 1
     for name in ("stripmatch", *roofline.MXU_VARIANTS):
         top = roofline.max_ws(name, 30)
-        assert top == (12 if name == "stripmatch" else 48)
+        assert top == (64 if name == "stripmatch" else 48)
         with pytest.raises(ValueError, match=f"--ws {top + 4}"):
             roofline.op_mix(roofline.make_inputs(name, top + 4, 30, dev), 1)
         assert roofline.blocks_per_sm(name, top, 30) >= 1
@@ -306,6 +309,40 @@ def test_roofline_kernel_refuses_what_it_cannot_hold(dev):
     for name in roofline.MXU_VARIANTS:
         for ws in (8, 12, 48):
             assert roofline.blocks_per_sm(name, ws, 30) * ws // 4 >= 8
+
+
+@pytest.mark.parametrize("ws", [4, 12, 60, 64])
+def test_strip_kernel_at_the_ring_edges(dev, ws):
+    """stripmatch equals its plain version exactly, every one of 5 copies,
+    at reps 0-3 and K 1 (every plane ahead is the next rep's), 7, 30 and
+    128 (the most scalars the block holds beside WS 64's rings); WS 4 is
+    one warp, 60 and 64 fifteen and sixteen."""
+    kernel = roofline.KERNEL_OF["stripmatch"]
+    for k in (1, 7, 30, roofline.MAX_ROWS):
+        x = roofline.make_inputs("stripmatch", ws, k, dev)
+        for reps in range(4):
+            before = roofline.ROOFLINE_LAUNCHES[kernel]
+            got = roofline.op_mix(x, reps, copies=5)
+            torch.cuda.synchronize()
+            assert roofline.ROOFLINE_LAUNCHES[kernel] == before + 1
+            want = roofline.op_mix_plain("stripmatch", x, reps)
+            for c in range(5):
+                assert torch.equal(got[c], want), (ws, k, reps, c)
+
+
+def test_strip_kernel_does_not_spill(dev, tmp_path):
+    """ptxas' report for strip_mix_kernel, compiled as the library is: no
+    spill stores or loads and at most 128 registers, so 512 threads (WS 64)
+    fit an SM."""
+    src = next(s for s in ssv_cuda._sources() if s.endswith("roofline.cu"))
+    proc = ssv_cuda.compile_object(src, str(tmp_path / "roofline.o"))
+    log = proc.communicate(timeout=600)[0]
+    assert proc.returncode == 0, log
+    entry = next(part for part in log.split("Compiling entry function")[1:]
+                 if "strip_mix_kernel" in part.split("\n")[0])
+    assert "0 bytes spill stores, 0 bytes spill loads" in entry, entry
+    regs = int(entry.split("Used ")[1].split(" registers")[0])
+    assert regs <= 128, entry
 
 
 @pytest.mark.parametrize("name", roofline.MXU_VARIANTS)

@@ -236,11 +236,14 @@ def test_wrapper_checks_inputs_and_kernel_shapes():
 
 
 def test_only_the_match_precompute_ws_asks_the_kernel_library():
-    """The planes of stripmatch and the match rings of mxumatch* live in
-    shared memory, so the kernel library caps their WS on the card
-    (tests/test_torch_cuda.py); the other variants keep WS 64 without
-    asking it."""
-    assert set(R.SMEM_VARIANTS) == set(MATCH_PRECOMPUTE)
+    """The match rings of mxumatch* grow with WS in shared memory, so the
+    kernel library caps their WS on the card (tests/test_torch_cuda.py);
+    stripmatch's ring of a plane a thread fits WS 64 at every K, so it keeps
+    WS 64 without asking the library, as every other variant does (no
+    library exists here to ask)."""
+    assert set(R.SMEM_VARIANTS) == set(MATCH_PRECOMPUTE) - {"stripmatch"}
+    for k in (1, 30, R.MAX_ROWS):
+        assert R.max_ws("stripmatch", k) == R.MAX_WS
     for name in R.VARIANTS:
         if name not in R.SMEM_VARIANTS:
             assert R.max_ws(name, K) == R.MAX_WS

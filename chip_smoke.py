@@ -74,6 +74,22 @@ Phases (each prints its own lines; any failure exits non-zero):
              line shows add8 and int8mix). Copies fill the card once
              (``roofline.fill_copies``). Prints the current/perrow
              GCUPS-equiv beside the main path's sweep GCUPS.
+9. mesh    — the 1-D wavefront (havac_tpu_torch.parallel): (a) the main
+             workload through Havac(device="cuda", mesh=ShardMesh([cuda:0] x
+             4)) at 128 rows a step (the JAX default) and at 1,024: hits
+             and raw keys equal phase 4's, one launch per active (shard,
+             step) pair, a sample of hits re-derives; D, R, S, T,
+             launches, sweep seconds, GCUPS beside phase 4's and the host
+             phases printed; (b) NCCL at world size 1 (one process on a
+             localhost TCP store, D = 1) equal to phase 4; (c) two
+             processes on cuda:0 joined by gloo, two shards each
+             (havac_tpu_torch.testing.multihost_worker, each under a
+             timeout), over the chromosome's first 8 Mb at the full model
+             width: their hits together equal a single-device run of the
+             cut; (d) at that cut, D = 4 on cuda:0, a run aborted after its
+             first step checkpoint ends ABORTED and a resume from it equals
+             the single-device run. One GPU: no multi-GPU number comes from
+             this phase (NCCL refuses two ranks on one GPU).
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; the run fails if a kernel of the path did not launch. The
@@ -102,9 +118,13 @@ from collections import Counter
 import numpy as np
 import torch
 
-from havac_tpu_torch.engine import Havac, cli
+from havac_tpu_torch.engine import Havac, HavacRunState, cli
 from havac_tpu_torch.ops import ssv_cuda
 from havac_tpu_torch.ops.ssv_torch import MAX_POS, MAX_ROW, ssv_sweep_plain
+from havac_tpu_torch.parallel.multihost import (ShardMesh,
+                                                global_sequence_mesh,
+                                                initialize)
+from havac_tpu_torch.testing.multihost_worker import AbortAfterCheckpoint
 from havac_tpu_torch.testing.percell import (compare_matrices,
                                              dp_matrix_kernel, dp_matrix_rows,
                                              dp_matrix_torch)
@@ -144,6 +164,13 @@ ROOFLINE_LO, ROOFLINE_HI = 64, 4160
 MATCH_PRECOMPUTE = ("stripmatch", "mxumatch", "mxumatch8")
 STRIP_SMALL_WS = 12  # the largest WS whose K = 30 planes all fit a block
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+MESH_SHARDS = 4
+MESH_ROWS = (128, 1024)  # rows a step: the JAX engine's default, and larger
+MESH_CUT = 8_000_000  # positions of the chromosome in (c) and (d)
+MESH_WORKERS = 2
+WORKER_TIMEOUT = 300
+RESOLVED = ("sequence_index", "sequence_position", "phmm_index",
+            "phmm_position")
 
 
 def bound(nbytes: float, op_seconds: float) -> dict:
@@ -541,6 +568,198 @@ def phase_scan(dev, engine, hmm, work) -> None:
         f"{json.dumps(report)}")
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def same_hits(tag, got, want) -> None:
+    """Resolved columns in order and raw (row, position) pairs, exactly."""
+    a, b = got.hits(), want.hits()
+    if len(a) != len(b) or not all(
+            np.array_equal(getattr(a, f), getattr(b, f)) for f in RESOLVED):
+        raise AssertionError(f"{tag}: {len(a)} hits, want {len(b)}")
+    for x, y in zip(got.raw_hits(), want.raw_hits()):
+        if not np.array_equal(x, y):
+            raise AssertionError(f"{tag}: raw hits differ ({x.size} vs "
+                                 f"{y.size})")
+
+
+def mesh_run(tag, dev, engine, mesh, rows, smi, main_gcups) -> Havac:
+    """The main workload on ``mesh``; checks its launches and hits against
+    phase 4's engine and prints its geometry, rate and host phases."""
+    ssv_cuda.LAUNCHES = 0
+    e = Havac(p_value=P_VALUE, device=dev, mesh=mesh, dist_rows_per_step=rows)
+    e.load_phmm(engine.models).load_sequence(engine.database)
+    t0 = time.perf_counter()
+    e.run()
+    wall = time.perf_counter() - t0
+    launches = ssv_cuda.LAUNCHES
+    st, geo = e.stats, e.stats.chunk_geometry
+    if (geo["launches"] != geo["shards"] * geo["row_chunks"]
+            or launches != geo["launches"] + st.overflow_retries):
+        raise AssertionError(f"{tag}: LAUNCHES={launches}, geometry {geo}, "
+                             f"regrows {st.overflow_retries}")
+    same_hits(tag, e, engine)
+    log(f"[mesh] {tag}: D={geo['shards']} R={geo['rows_per_step']} "
+        f"S={geo['row_chunks']} T={geo['steps']} launches={geo['launches']} "
+        f"(LAUNCHES={launches}, regrows={st.overflow_retries}) shard width "
+        f"{geo['shard_width']}: sweep {st.sweep_seconds:.4f} s (run "
+        f"{wall:.3f} s), {st.gcups:.2f} GCUPS beside phase 4's "
+        f"{main_gcups:.2f}; hits {len(e.hits())} and raw keys == phase 4's; "
+        f"{smi}")
+    log(f"[mesh] {tag} phases "
+        f"{json.dumps({k: round(v, 4) for k, v in st.pipeline_prof.items()})}")
+    # One launch at the run's shape (a shard of the chromosome x R rows),
+    # timed alone: launches x its time is the run's device time, the rest
+    # of the sweep the device's idle share.
+    W, rows = geo["shard_width"], geo["rows_per_step"]
+    start = int(engine.database.starts[0])
+    sym = torch.from_numpy(np.ascontiguousarray(
+        engine.database.codes[start:start + W])).to(dev)
+    sc = torch.from_numpy(engine.scores[:rows]).to(dev)
+    out = ssv_cuda.SweepBuffers.empty(sym.shape[0], rows, 1 << 20, dev)
+    zs = torch.zeros(sym.shape[0], dtype=torch.int32, device=dev)
+    zc = torch.zeros(rows + 1, dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: ssv_cuda.launch(sym, sc, zs, zc, None, 0, 0, out),
+                 reps=5)
+    busy = geo["launches"] * ms / 1e3
+    log(f"[mesh] {tag}: one launch of {sym.shape[0]} x {rows} {ms:.4f} ms "
+        f"({sym.shape[0] * rows / ms / 1e6:.2f} GCUPS); x {geo['launches']} "
+        f"launches = {busy:.4f} s of device time, {busy / st.sweep_seconds:.4f}"
+        f" of the sweep (idle {1 - busy / st.sweep_seconds:.4f}); {smi}")
+    return e
+
+
+def phase_mesh(dev, smi, engine, work, main_gcups) -> None:
+    # (a) one process, D shards on cuda:0, at two step heights.
+    for rows in MESH_ROWS:
+        e = mesh_run(f"D={MESH_SHARDS} R={rows}", dev, engine,
+                     ShardMesh([dev] * MESH_SHARDS), rows, smi, main_gcups)
+        t0 = time.perf_counter()
+        report = e.verify(sample=min(10_000, e.stats.num_raw_hits))
+        if not report.all_verified:
+            raise AssertionError(
+                f"mesh R={rows}: {report.num_hits - report.num_verified} "
+                "sampled hits failed")
+        log(f"[mesh] R={rows}: verified {report.num_verified}/"
+            f"{report.num_hits} sampled raw hits "
+            f"({time.perf_counter() - t0:.3f} s)")
+        del e
+
+    # (b) NCCL at world size 1.
+    import torch.distributed as dist
+
+    initialize(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = global_sequence_mesh(devices=[dev])
+        if mesh.backend != "nccl" or mesh.shape != {"seq": 1}:
+            raise AssertionError(f"NCCL mesh {mesh}")
+        mesh_run(f"NCCL world 1, {mesh}", dev, engine, mesh, MESH_ROWS[-1],
+                 smi, main_gcups)
+    finally:
+        dist.destroy_process_group()
+
+    # (c) two processes on cuda:0 joined by gloo, over a cut.
+    db = engine.database
+    start = int(db.starts[0])
+    cut = os.path.join(work, "cut.fasta")
+    write_fasta(cut, "synth-chr-cut", db.codes[start:start + MESH_CUT])
+    hmm = os.path.join(work, "models.hmm")
+    single = Havac(p_value=P_VALUE, device=dev).load_phmm(hmm)
+    single.load_sequence(cut).run()
+    out_dir = os.path.join(work, "workers")
+    os.makedirs(out_dir)
+    init = f"127.0.0.1:{_free_port()}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "havac_tpu_torch.testing.multihost_worker",
+         "--case", "engine", "--init", init, "--world", str(MESH_WORKERS),
+         "--rank", str(r), "--backend", "gloo", "--device", str(dev),
+         "--shards", "2", "--rows-per-step", str(MESH_ROWS[0]), "--out",
+         out_dir, "--hmm", hmm, "--fasta", cut, "--pvalue", str(P_VALUE)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(MESH_WORKERS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=WORKER_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"worker {r} exited {p.returncode}:\n"
+                                 f"{text[-4000:]}")
+        log(f"[mesh] gloo worker {r}: {text.strip().splitlines()[-1]}")
+    ranks = [np.load(os.path.join(out_dir, f"rank{r}.npz"))
+             for r in range(MESH_WORKERS)]
+    for r, z in enumerate(ranks):
+        prof = {k: round(v, 4) for k, v in json.loads(str(z["prof"])).items()}
+        log(f"[mesh] gloo worker {r} phases {json.dumps(prof)}")
+    keys = ("si", "sp", "pi", "pp")
+    cols = [np.concatenate([z[k] for z in ranks]) for k in keys]
+    want = single.hits()
+    order = np.lexsort((want.phmm_position, want.phmm_index,
+                        want.sequence_position, want.sequence_index))
+    got_order = np.lexsort(cols[::-1])
+    if len(want) == 0 or not all(
+            np.array_equal(c[got_order], getattr(want, f)[order])
+            for c, f in zip(cols, RESOLVED)):
+        raise AssertionError(f"gloo workers: {cols[0].size} hits, a single "
+                             f"device {len(want)}")
+    raw = np.sort(np.concatenate([(z["rows"] << 38) | z["pos"]
+                                  for z in ranks]))
+    rows, pos = single.raw_hits()
+    if not np.array_equal(raw, (rows << 38) | pos):
+        raise AssertionError("gloo workers: raw hits differ")
+    launches = [int(z["launches"]) for z in ranks]
+    if any(int(z["kernel_launches"]) != n + int(z["regrows"])
+           for z, n in zip(ranks, launches)):
+        raise AssertionError("gloo workers: LAUNCHES "
+                             f"{[int(z['kernel_launches']) for z in ranks]} "
+                             f"!= launches {launches} + regrows")
+    log(f"[mesh] {MESH_WORKERS} gloo processes x 2 shards on {dev} over "
+        f"{MESH_CUT} positions x {engine.scores.shape[0]} rows "
+        f"(R={MESH_ROWS[0]}): {cols[0].size} hits together == a single-device "
+        f"run's; launches {launches}; sweep seconds "
+        f"{[round(float(z['sweep_seconds']), 4) for z in ranks]}, wall "
+        f"{time.perf_counter() - t0:.3f} s with start-up; {smi}")
+
+    # (d) abort after the first step checkpoint, then resume, at the cut.
+    ckpt = os.path.join(work, "mesh.ckpt.npz")
+
+    def cut_run(cls):
+        e = cls(p_value=P_VALUE, device=dev,
+                mesh=ShardMesh([dev] * MESH_SHARDS),
+                dist_rows_per_step=MESH_ROWS[0], checkpoint_path=ckpt)
+        return e.load_phmm(hmm).load_sequence(cut)
+
+    first = cut_run(AbortAfterCheckpoint).run_async()
+    if first.wait(timeout=600) != HavacRunState.ABORTED:
+        raise AssertionError(f"aborted run ended {first.state}")
+    if not os.path.exists(ckpt):
+        raise AssertionError("no step checkpoint was written")
+    ssv_cuda.LAUNCHES = 0
+    second = cut_run(Havac).run()
+    if second.resumed_chunks != 4 or os.path.exists(ckpt):
+        raise AssertionError(f"resumed at {second.resumed_chunks}")
+    if ssv_cuda.LAUNCHES != (second.stats.num_chunks
+                             + second.stats.overflow_retries):
+        raise AssertionError(f"resumed run: LAUNCHES={ssv_cuda.LAUNCHES}")
+    same_hits("resumed mesh run", second, single)
+    log(f"[mesh] abort after the step-4 checkpoint: {first.state.value}; the "
+        f"resume from step {second.resumed_chunks} of "
+        f"{second.stats.chunk_geometry['steps']} ({second.stats.num_chunks} "
+        f"launches, LAUNCHES={ssv_cuda.LAUNCHES}) == the single-device run "
+        f"({len(second.hits())} hits)")
+
+
 def run_paths(dev, smi, work, max_err) -> dict:
     # ---- main path at the published 10k point
     t0 = time.perf_counter()
@@ -668,6 +887,7 @@ def run_paths(dev, smi, work, max_err) -> dict:
     # ---- the per-cell readouts, then the multi-file paths
     dump = phase_percell(dev, engine, smi, per_word["dump"])
     phase_scan(dev, engine, hmm, work)
+    phase_mesh(dev, smi, engine, work, st.gcups)
 
     return {"kernels": [
         {"name": "ssv_sweep", "route": "cuda", "source": SOURCE,

@@ -10,8 +10,12 @@ The backend follows the device: on a CUDA device (``backend == "cuda"``)
 the sweep runs the hand-written Hopper kernel
 (`havac_tpu_torch/csrc/ssv_sweep.cu`); on the CPU (``"torch"``) it runs the
 plain PyTorch version. Neither falls back to the other, and
-``device="cuda"`` without CUDA raises. Multi-device (``mesh=``) sweeps are
-not ported yet.
+``device="cuda"`` without CUDA raises. With ``mesh=`` (a
+:class:`~havac_tpu_torch.parallel.multihost.ShardMesh` whose devices agree
+with ``device``) the sweep is the 1-D wavefront of
+`havac_tpu_torch/parallel/swar_dist.py`: the database in D shards, one
+kernel launch per shard and step, abort and checkpoints between steps; in a
+multi-process mesh each process reports its own shards' hits.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import logging
 import os
 import queue
 import threading
+import time
 import zlib
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
@@ -38,7 +43,10 @@ from havac_tpu_torch.io.hmm import (ProfileHmm, model_length_prefix_sums, read_h
                               read_hmm_text)
 from havac_tpu_torch.ops.common import round_up
 from havac_tpu_torch.scoring.reprojection import project_models
-from havac_tpu_torch.engine.pipeline import PipelinedSweep, raw_pairs
+from havac_tpu_torch.engine.pipeline import (FIRST_KEY_CAP, PipelinedSweep,
+                                             raw_pairs)
+from havac_tpu_torch.parallel.multihost import all_gather_int
+from havac_tpu_torch.parallel.swar_dist import SwarDistributedSweep
 
 DEFAULT_P_VALUE = 0.02  # the reference CLI's default
 SCAN_PRODUCER_THREAD = "havac-scan-producer"
@@ -87,7 +95,7 @@ class RunStats:
 
 
 class Havac:
-    """SSV search engine on one device.
+    """SSV search engine on one device, or on a mesh of shards.
 
     Usage::
 
@@ -101,6 +109,14 @@ class Havac:
     valid, and hits do not depend on them. ``pad_multiple`` pads the encoded
     database (with hashed symbols, as the JAX engine pads to its kernel
     block width); padding hits appear in :meth:`raw_hits` only.
+
+    ``mesh`` shards the database over ``mesh.shape[mesh_axis]`` shards and
+    sweeps the models in row chunks of ``dist_rows_per_step`` (any R >= 1)
+    as a wavefront; ``dist_hit_capacity`` is each launch's first key
+    buffer. R defaults to 1,024, not the JAX engine's 128: on an H100 a
+    step of 128 rows costs the host about as long to dispatch and pull as
+    the kernel takes, and the sweep runs at half the rate. The JAX engine's ``dist_step_dispatch=False`` (one uncancelable
+    dispatch) is refused: every step is its own set of launches.
     """
 
     def __init__(
@@ -117,10 +133,11 @@ class Havac:
         checkpoint_path: Optional[str] = None,
         verify_hits: bool = False,
         mesh=None,
+        mesh_axis: str = "seq",
+        dist_rows_per_step: int = 1024,
+        dist_hit_capacity: int = FIRST_KEY_CAP,
+        dist_step_dispatch: bool = True,
     ) -> None:
-        if mesh is not None:
-            raise HavacUsageError(
-                "mesh= (multi-device sweeps) is not yet ported")
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -131,6 +148,12 @@ class Havac:
         else:
             raise HavacUsageError(
                 f"unsupported device {self.device}: cuda or cpu")
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self.dist_rows_per_step = int(dist_rows_per_step)
+        self.dist_hit_capacity = int(dist_hit_capacity)
+        if mesh is not None:
+            self._check_mesh(dist_step_dispatch)
         self.p_value = float(p_value)
         self.chunk_symbols = max(1, int(chunk_symbols))
         self.chunk_rows = max(1, int(chunk_rows))
@@ -192,6 +215,11 @@ class Havac:
                 f"mixed alphabets in one collection: cardinalities {sorted(cards)}")
         card = cards.pop()
         if card == 20:
+            if self.mesh is not None:
+                raise HavacUsageError(
+                    "amino models are supported on the single-device engine "
+                    "only (the mesh wavefront is nucleotide-only, as in the "
+                    "JAX engine)")
             if self.strand == "both":
                 raise HavacUsageError(
                     "strand='both' (reverse complement) is meaningless for "
@@ -257,11 +285,13 @@ class Havac:
     def warmup(self) -> "Havac":
         """Build (or load) the sweep kernel and stage the database and the
         scores on the device now, so the next :meth:`run` starts sweeping
-        at once. Call after :meth:`load_phmm` and :meth:`load_sequence`."""
+        at once. Call after :meth:`load_phmm` and :meth:`load_sequence`.
+        A no-op on a mesh, as in the JAX engine."""
         if self.scores is None or self.database is None:
             raise HavacUsageError(
                 "load_phmm + load_sequence before warmup()")
-        self._warm_sweep = self._build_sweep()
+        if self.mesh is None:
+            self._warm_sweep = self._build_sweep()
         return self
 
     def _codes(self) -> np.ndarray:
@@ -476,7 +506,32 @@ class Havac:
 
     # ------------------------------------------------------------- internals
 
+    def _check_mesh(self, step_dispatch: bool) -> None:
+        mesh = self.mesh
+        if not step_dispatch:
+            raise HavacUsageError(
+                "dist_step_dispatch=False names the JAX engine's single "
+                "uncancelable mesh dispatch, a TPU workaround; the port "
+                "launches every wavefront step on its own")
+        if self.mesh_axis not in getattr(mesh, "shape", {}):
+            raise HavacUsageError(
+                f"mesh has no axis {self.mesh_axis!r}: build it with "
+                "havac_tpu_torch.parallel.multihost.ShardMesh")
+        bad = [str(d) for d in mesh.devices
+               if d.type != self.device.type
+               or (self.device.index is not None
+                   and d.index != self.device.index)]
+        if bad:
+            raise HavacUsageError(
+                f"device={self.device} does not agree with the mesh's "
+                f"devices {bad}")
+        if self.dist_rows_per_step < 1:
+            raise HavacUsageError("dist_rows_per_step must be at least 1")
+
     def _run_loop(self) -> None:
+        if self.mesh is not None:
+            self._run_loop_distributed()
+            return
         try:
             sweep = self._warm_sweep
             self._warm_sweep = None
@@ -536,6 +591,132 @@ class Havac:
             with self._state_lock:
                 self._state = HavacRunState.ERROR
 
+    def _run_loop_distributed(self) -> None:
+        try:
+            P = self.scores.shape[0]
+            sweep = SwarDistributedSweep(
+                self._codes(), self.mesh, self.mesh_axis,
+                rows_per_step=self.dist_rows_per_step,
+                key_cap=self.dist_hit_capacity, database=self.database,
+                phmm_prefix=self.phmm_prefix)
+            self._chunks_total = -(-P // sweep.R) + sweep.D - 1
+
+            def progress(step, total):
+                self._chunks_total = total
+                self._chunks_done = step
+
+            checkpoint_cb, resume, ck_path = self._mesh_checkpoint_hooks(
+                sweep, P)
+            log.info("mesh sweep: %d shards of %d positions, %d rows a step, "
+                     "backend=%s", sweep.D, sweep.shard_width, sweep.R,
+                     self.backend)
+            t0 = time.perf_counter()
+            result = sweep.sweep(self.scores, self.reset_rows,
+                                 abort_event=self._abort_event,
+                                 progress=progress,
+                                 checkpoint_cb=checkpoint_cb, resume=resume,
+                                 ckpt_every=4)
+            if result is None:
+                with self._state_lock:
+                    self._state = HavacRunState.ABORTED
+                return
+            if ck_path and os.path.exists(ck_path):
+                os.remove(ck_path)
+            self._finish_distributed(result, sweep, P,
+                                     time.perf_counter() - t0)
+        except BaseException as exc:  # surfaced on run()/hits()
+            self._error = exc
+            with self._state_lock:
+                self._state = HavacRunState.ERROR
+
+    def _finish_distributed(self, result, sweep: SwarDistributedSweep,
+                            P: int, t_sweep: float) -> None:
+        self._resolved, self._raw_keys = result
+        sched = sweep.schedule
+        self.stats.num_chunks = sweep.launches
+        self.stats.cells = self.database.padded_length * P
+        self.stats.sweep_seconds = t_sweep
+        self.stats.num_raw_hits = sum(int(k.shape[0])
+                                      for k in self._raw_keys)
+        self.stats.overflow_retries = sweep.regrows
+        self.stats.pipeline_prof = dict(sweep.prof)
+        self.stats.chunk_geometry = {
+            "shards": sweep.D, "rows_per_step": sweep.R,
+            "row_chunks": sched.S, "steps": sched.T,
+            "launches": sweep.launches, "shard_width": sweep.shard_width,
+            "key_cap": sweep.key_cap, "lookahead": sweep.lookahead,
+        }
+        log.info("distributed phases (s): %s",
+                 {k: round(v, 3) for k, v in sweep.prof.items()})
+        self._maybe_verify()
+        with self._state_lock:
+            self._state = HavacRunState.COMPLETED
+
+    def _mesh_checkpoint_hooks(self, sweep: SwarDistributedSweep, P: int):
+        """(checkpoint_cb, resume, path) for the mesh sweep, every 4 steps.
+
+        Each process writes its shards' row states, the seams they take at
+        the next step and its hits so far to ``checkpoint_path`` (``.pK``
+        for process K when there are several), under the single-device
+        fingerprint with ``mesh:{D}:{axis}:{world size}`` on top. A file of
+        another run, or whose arrays have another shape, is stale: the run
+        starts from step 0 with a warning. Every process must resume at the
+        same step, or the seams would deadlock: they agree by an all-gather,
+        and any disagreement or missing file restarts all of them."""
+        if not self.checkpoint_path:
+            return None, None, None
+        mesh = self.mesh
+        fp = self._fingerprint(self.database.padded_length, P,
+                               sweep.shard_width, sweep.R)
+        fp = zlib.crc32(f"mesh:{sweep.D}:{self.mesh_axis}:"
+                        f"{mesh.world_size}".encode(), fp)
+        path = self.checkpoint_path
+        if mesh.world_size > 1:
+            path += f".p{mesh.rank}"
+        shapes = ((len(sweep.shards), sweep.shard_width),
+                  (len(sweep.shards), sweep.R + 1))
+        resume = None
+        try:
+            with np.load(path) as ck:
+                if (int(ck["fingerprint"]) == fp
+                        and (ck["istate"].shape, ck["seam"].shape) == shapes):
+                    resume = (int(ck["next_t"]), ck["istate"], ck["seam"],
+                              ck["hit_rows"], ck["hit_positions"])
+                else:
+                    self._warn_stale_checkpoint(path)
+        except FileNotFoundError:
+            pass
+        except (KeyError, OSError, ValueError):
+            self._warn_stale_checkpoint(path)
+        if mesh.world_size > 1:
+            ts = all_gather_int(mesh, -1 if resume is None else resume[0])
+            if min(ts) < 0 or min(ts) != max(ts):
+                if resume is not None:
+                    log.warning("mesh checkpoint resume: the processes' "
+                                "next steps disagree (%s); every process "
+                                "restarts from step 0", ts)
+                resume = None
+        if resume is not None:
+            self.resumed_chunks = resume[0]
+            self._chunks_done = resume[0]
+
+        def checkpoint_cb(t_next, istate, ilo, seams, slo, rows_s, pos_s):
+            del ilo, slo  # the mesh places the shards again on resume
+            tmp = path + ".tmp"
+            np.savez(tmp, fingerprint=np.int64(fp), next_t=np.int64(t_next),
+                     istate=istate, seam=seams, hit_rows=rows_s,
+                     hit_positions=pos_s)
+            os.replace(tmp + ".npz" if os.path.exists(tmp + ".npz") else tmp,
+                       path)
+
+        return checkpoint_cb, resume, path
+
+    @staticmethod
+    def _warn_stale_checkpoint(path: str) -> None:
+        log.warning("checkpoint %s does not match this run's inputs or "
+                    "geometry; starting from scratch — it will be "
+                    "overwritten", path)
+
     def _fingerprint(self, L: int, P: int, chunk: int, rchunk: int) -> int:
         """The JAX engine's checkpoint fingerprint, term for term, so a
         checkpoint resumes in either engine when the chunk geometry agrees."""
@@ -565,7 +746,5 @@ class Havac:
             return None
         except (KeyError, OSError, ValueError):
             pass
-        log.warning("checkpoint %s does not match this run's inputs or "
-                    "geometry; starting from scratch — it will be "
-                    "overwritten", self.checkpoint_path)
+        self._warn_stale_checkpoint(self.checkpoint_path)
         return None

@@ -9,7 +9,9 @@ both kept on the device. Up to ``lookahead`` chunks are in flight on one
 CUDA stream; each chunk's hit count and key buffer cross to pinned host
 memory by asynchronous copies, and a collector pool sorts and resolves the
 keys (`havac_tpu_torch.native.resolve_keys_native`) while the device sweeps later
-chunks.
+chunks. The launches, pulls, regrows and resolution are
+:class:`KeyedLaunches`, which the mesh sweep
+(`havac_tpu_torch/parallel/swar_dist.py`) shares.
 
 The kernel emits its own hit keys and an exact count, so the JAX engine's
 dirty-tile drain, record compaction, pull batching and learned record caps
@@ -92,10 +94,10 @@ def raw_pairs(parts: List[np.ndarray], ordered: bool = False
 class _Pending:
     """One launched chunk whose hits have not reached the host yet."""
 
-    ri: int
     r0: int  # the chunk's first global row and position: the keys are
     lo: int  # chunk-local past the key bounds
-    inputs: tuple  # (symbols, init_state, init_carry): for a regrow
+    # (symbols, scores, reset_rows, init_state, init_carry): for a regrow
+    inputs: tuple
     out: ssv_cuda.SweepBuffers
     host_keys: Optional[torch.Tensor]  # pinned, CUDA only
     host_count: Optional[torch.Tensor]
@@ -107,14 +109,161 @@ class ChunkHits:
     """A chunk's hits on the host: every hit (sorted) and the resolved
     table of the kept ones (separator/padding hits dropped). Hits are
     global uint64 keys, or (n, 2) int64 (row, position) pairs past the key
-    bounds."""
+    bounds. A sweep with no database resolves nothing (``resolved`` and
+    ``kept_keys`` None)."""
 
     keys: np.ndarray  # sorted by (row, position)
-    resolved: ResolvedHits
-    kept_keys: np.ndarray  # sorted by (row, position)
+    resolved: Optional[ResolvedHits]
+    kept_keys: Optional[np.ndarray]  # sorted by (row, position)
 
 
-class PipelinedSweep:
+class KeyedLaunches:
+    """Sweep-kernel launches whose hit keys cross to the host and are
+    resolved there: what the pipelined sweep and the mesh sweep
+    (`havac_tpu_torch/parallel/swar_dist.py`) share.
+
+    :meth:`_enqueue` launches one chunk on the current stream of its
+    tensors' device and starts the asynchronous copy of its count and keys
+    into pinned host memory; :meth:`_pull` waits for them and, when the
+    count exceeded the key buffer, launches the chunk once more from its
+    retained inputs with a buffer of exactly that size (later chunks get
+    room for 1.25x the count); :meth:`_resolve_chunk` sorts the keys and
+    resolves them, in a collector pool. The host's time goes to ``prof``'s
+    ``ready_wait``, ``fetch``, ``regrow``, ``sort`` and ``resolve``."""
+
+    def _init_keys(self, database, phmm_prefix, key_cap: int) -> None:
+        self.key_cap = max(1, int(key_cap))
+        self.regrows = 0
+        self._database = database
+        self._prefix = (None if phmm_prefix is None
+                        else np.asarray(phmm_prefix, dtype=np.int64))
+        self._tables = (None if database is None else
+                        (np.asarray(database.starts, dtype=np.int64),
+                         np.asarray(database.lengths, dtype=np.int64),
+                         self._prefix))
+        self._native = native if native.available() else None
+        self._prof_lock = threading.Lock()
+        self._pinned: List[Tuple[torch.Tensor, torch.Tensor]] = []
+
+    def _fits_keys(self, L: int, P: int) -> bool:
+        """Whether keys can hold global coordinates for ``P`` rows over
+        ``L`` positions of the database (``keyform``)."""
+        lengths = (self._tables[1] if self._tables is not None
+                   else np.empty(0, np.int64))
+        return (P < KEY_ROWS and L < KEY_POSITIONS
+                and not (lengths.size and int(lengths.max()) >= KEY_SEQUENCE))
+
+    def _host_buffers(self, cap: int):
+        while self._pinned:
+            keys, count = self._pinned.pop()
+            if keys.shape[0] == cap:
+                return keys, count
+        return (torch.empty(cap, dtype=torch.int64, pin_memory=True),
+                torch.empty(1, dtype=torch.int64, pin_memory=True))
+
+    def _enqueue(self, inputs: tuple, r0: int, lo: int) -> _Pending:
+        """Launch one chunk: ``inputs`` = (symbols, scores, reset_rows,
+        init_state, init_carry) on one device; (r0, lo) its first global
+        row and position."""
+        dev = inputs[0].device
+        out = ssv_cuda.SweepBuffers.empty(inputs[0].shape[0],
+                                          inputs[1].shape[0], self.key_cap,
+                                          dev)
+        self._launch(inputs, r0, lo, out)
+        host_keys = host_count = event = None
+        if dev.type == "cuda":
+            host_keys, host_count = self._host_buffers(out.cap)
+            host_count.copy_(out.count, non_blocking=True)
+            host_keys.copy_(out.keys, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+        return _Pending(r0, lo, inputs, out, host_keys, host_count, event)
+
+    def _launch(self, inputs: tuple, r0: int, lo: int,
+                out: ssv_cuda.SweepBuffers) -> None:
+        sym, scores, reset, istate, icarry = inputs
+        if not self.keyform:
+            r0 = lo = 0  # chunk-local keys, widened on the host
+        ssv_cuda.launch(sym, scores, istate, icarry, reset, r0, lo, out)
+
+    def _pull(self, p: _Pending) -> np.ndarray:
+        """The chunk's keys on the host (unordered); regrows on overflow."""
+        t0 = time.perf_counter()
+        if p.event is not None:
+            p.event.synchronize()
+        t1 = time.perf_counter()
+        count = p.host_count if p.host_count is not None else p.out.count
+        n = int(count[0])
+        if n <= p.out.cap:
+            src = p.host_keys if p.host_keys is not None else p.out.keys
+            keys = src[:n].numpy().view(np.uint64).copy()
+            if p.host_keys is not None:
+                self._pinned.append((p.host_keys, p.host_count))
+            self.prof["ready_wait"] += t1 - t0
+            self.prof["fetch"] += time.perf_counter() - t1
+            return keys
+        # The key buffer was too small: launch the chunk again with a buffer
+        # of exactly the count, and size later chunks' buffers to fit.
+        self.regrows += 1
+        self.key_cap = max(self.key_cap, round_up(n + n // 4, 1 << 16))
+        sym, scores = p.inputs[:2]
+        out = ssv_cuda.SweepBuffers.empty(sym.shape[0], scores.shape[0], n,
+                                          sym.device)
+        self._launch(p.inputs, p.r0, p.lo, out)
+        keys = out.keys.cpu().numpy().view(np.uint64).copy()
+        if int(out.count.cpu()[0]) != n:
+            raise RuntimeError("hit count changed on relaunch")
+        self.prof["ready_wait"] += t1 - t0
+        self.prof["regrow"] += time.perf_counter() - t1
+        return keys
+
+    def _resolve_chunk(self, keys: np.ndarray, r0: int = 0,
+                       lo: int = 0) -> ChunkHits:
+        """Collector-pool work item: sort the chunk's keys, then resolve
+        them to local coordinates (separator/padding hits dropped). Past
+        the key bounds the keys are chunk-local: (r0, lo) widens them."""
+        if not self.keyform:
+            rows, pos = pairs_from_keys(keys)
+            return self._resolve_pairs(rows + r0, pos + lo)
+        t0 = time.perf_counter()
+        keys.sort()
+        t1 = time.perf_counter()
+        res = kept = None
+        if self._database is not None and self._native is not None:
+            starts, lengths, prefix = self._tables
+            si, sp, mi, mp, kept = self._native.resolve_keys_native(
+                keys, starts, lengths, prefix, nthreads=1)
+            res = ResolvedHits(si, sp, mi, mp)
+        elif self._database is not None:
+            rows, pos = pairs_from_keys(keys)
+            res, kr, kp = resolve_block_with_keys(rows, pos, self._database,
+                                                  self._prefix)
+            kept = keys_from_pairs(kr, kp)
+        self._account(t0, t1)
+        return ChunkHits(keys, res, kept)
+
+    def _resolve_pairs(self, rows: np.ndarray, pos: np.ndarray) -> ChunkHits:
+        """``_resolve_chunk`` past the key bounds: global int64 pairs."""
+        t0 = time.perf_counter()
+        order = np.lexsort((pos, rows))
+        rows, pos = rows[order], pos[order]
+        t1 = time.perf_counter()
+        res = kept = None
+        if self._database is not None:
+            res, kr, kp = resolve_block_with_keys(rows, pos, self._database,
+                                                  self._prefix)
+            kept = np.stack([kr, kp], axis=1)
+        self._account(t0, t1)
+        return ChunkHits(np.stack([rows, pos], axis=1), res, kept)
+
+    def _account(self, t0: float, t1: float) -> None:
+        t2 = time.perf_counter()
+        with self._prof_lock:
+            self.prof["sort"] += t1 - t0
+            self.prof["resolve"] += t2 - t1
+
+
+class PipelinedSweep(KeyedLaunches):
     """Chunked (column x row) sweep over ``codes`` (L,) uint8 against
     ``scores`` (P, card) int8 on ``device``."""
 
@@ -133,28 +282,17 @@ class PipelinedSweep:
         if int(codes.max()) >= card:
             raise ValueError(
                 f"symbol code {int(codes.max())} >= alphabet cardinality {card}")
-        lengths = np.asarray(database.lengths, dtype=np.int64)
-        self.keyform = (self.P < KEY_ROWS and self.L < KEY_POSITIONS
-                        and not (lengths.size
-                                 and int(lengths.max()) >= KEY_SEQUENCE))
+        self._init_keys(database, phmm_prefix, key_cap)
+        self.keyform = self._fits_keys(self.L, self.P)
         self.chunk = max(1, min(int(chunk_symbols), (1 << 31) - 1))
         self.n_col = -(-self.L // self.chunk)
         self.n_row = -(-self.P // max(1, int(chunk_rows)))
         self.rchunk = -(-self.P // self.n_row)
-        self.key_cap = max(1, int(key_cap))
         self.lookahead = LOOKAHEAD
-        self.regrows = 0
-        self._database = database
-        self._prefix = np.asarray(phmm_prefix, dtype=np.int64)
-        self._tables = (np.asarray(database.starts, dtype=np.int64), lengths,
-                        self._prefix)
-        self._native = native if native.available() else None
         self.prof: Dict[str, float] = {
             "dispatch": 0.0, "gate_wait": 0.0, "ready_wait": 0.0,
             "fetch": 0.0, "regrow": 0.0, "sort": 0.0, "resolve": 0.0,
             "drain": 0.0, "tail": 0.0}
-        self._prof_lock = threading.Lock()
-        self._pinned: List[Tuple[torch.Tensor, torch.Tensor]] = []
 
         # Stage the database and the per-row-chunk score rows once.
         self._codes_dev = torch.from_numpy(
@@ -179,115 +317,6 @@ class PipelinedSweep:
     def col_range(self, ci: int) -> Tuple[int, int]:
         lo = ci * self.chunk
         return lo, min(self.L, lo + self.chunk)
-
-    # ------------------------------------------------------------- chunks
-
-    def _host_buffers(self, cap: int):
-        while self._pinned:
-            keys, count = self._pinned.pop()
-            if keys.shape[0] == cap:
-                return keys, count
-        return (torch.empty(cap, dtype=torch.int64, pin_memory=True),
-                torch.empty(1, dtype=torch.int64, pin_memory=True))
-
-    def _enqueue(self, ci: int, ri: int, istate: torch.Tensor,
-                 icarry: torch.Tensor) -> _Pending:
-        lo, hi = self.col_range(ci)
-        r0, r1 = self.row_range(ri)
-        sym = self._codes_dev[lo:hi]
-        out = ssv_cuda.SweepBuffers.empty(hi - lo, r1 - r0, self.key_cap,
-                                          self.device)
-        self._launch(ri, r0, lo, (sym, istate, icarry), out)
-        host_keys = host_count = event = None
-        if self.device.type == "cuda":
-            host_keys, host_count = self._host_buffers(out.cap)
-            host_count.copy_(out.count, non_blocking=True)
-            host_keys.copy_(out.keys, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-        return _Pending(ri, r0, lo, (sym, istate, icarry), out, host_keys,
-                        host_count, event)
-
-    def _launch(self, ri: int, r0: int, lo: int, inputs: tuple,
-                out: ssv_cuda.SweepBuffers) -> None:
-        sym, istate, icarry = inputs
-        if not self.keyform:
-            r0 = lo = 0  # chunk-local keys, widened on the host
-        ssv_cuda.launch(sym, self._scores_dev[ri], istate, icarry,
-                        self._reset_dev[ri], r0, lo, out)
-
-    def _pull(self, p: _Pending) -> np.ndarray:
-        """The chunk's keys on the host (unordered); regrows on overflow."""
-        t0 = time.perf_counter()
-        if p.event is not None:
-            p.event.synchronize()
-        t1 = time.perf_counter()
-        count = p.host_count if p.host_count is not None else p.out.count
-        n = int(count[0])
-        if n <= p.out.cap:
-            src = p.host_keys if p.host_keys is not None else p.out.keys
-            keys = src[:n].numpy().view(np.uint64).copy()
-            if p.host_keys is not None:
-                self._pinned.append((p.host_keys, p.host_count))
-            self.prof["ready_wait"] += t1 - t0
-            self.prof["fetch"] += time.perf_counter() - t1
-            return keys
-        # The key buffer was too small: launch the chunk again with a buffer
-        # of exactly the count, and size later chunks' buffers to fit.
-        self.regrows += 1
-        self.key_cap = max(self.key_cap, round_up(n + n // 4, 1 << 16))
-        r0, r1 = self.row_range(p.ri)
-        out = ssv_cuda.SweepBuffers.empty(p.inputs[0].shape[0], r1 - r0, n,
-                                          self.device)
-        self._launch(p.ri, r0, p.lo, p.inputs, out)
-        keys = out.keys.cpu().numpy().view(np.uint64).copy()
-        if int(out.count.cpu()[0]) != n:
-            raise RuntimeError("hit count changed on relaunch")
-        self.prof["ready_wait"] += t1 - t0
-        self.prof["regrow"] += time.perf_counter() - t1
-        return keys
-
-    def _resolve_chunk(self, keys: np.ndarray, r0: int = 0,
-                       lo: int = 0) -> ChunkHits:
-        """Collector-pool work item: sort the chunk's keys, then resolve
-        them to local coordinates (separator/padding hits dropped). Past
-        the key bounds the keys are chunk-local: (r0, lo) widens them."""
-        if not self.keyform:
-            rows, pos = pairs_from_keys(keys)
-            return self._resolve_pairs(rows + r0, pos + lo)
-        t0 = time.perf_counter()
-        keys.sort()
-        t1 = time.perf_counter()
-        if self._native is not None:
-            starts, lengths, prefix = self._tables
-            si, sp, mi, mp, kept = self._native.resolve_keys_native(
-                keys, starts, lengths, prefix, nthreads=1)
-            res = ResolvedHits(si, sp, mi, mp)
-        else:
-            rows, pos = pairs_from_keys(keys)
-            res, kr, kp = resolve_block_with_keys(rows, pos, self._database,
-                                                  self._prefix)
-            kept = keys_from_pairs(kr, kp)
-        self._account(t0, t1)
-        return ChunkHits(keys, res, kept)
-
-    def _resolve_pairs(self, rows: np.ndarray, pos: np.ndarray) -> ChunkHits:
-        """``_resolve_chunk`` past the key bounds: global int64 pairs."""
-        t0 = time.perf_counter()
-        order = np.lexsort((pos, rows))
-        rows, pos = rows[order], pos[order]
-        t1 = time.perf_counter()
-        res, kr, kp = resolve_block_with_keys(rows, pos, self._database,
-                                              self._prefix)
-        self._account(t0, t1)
-        return ChunkHits(np.stack([rows, pos], axis=1), res,
-                         np.stack([kr, kp], axis=1))
-
-    def _account(self, t0: float, t1: float) -> None:
-        t2 = time.perf_counter()
-        with self._prof_lock:
-            self.prof["sort"] += t1 - t0
-            self.prof["resolve"] += t2 - t1
 
     # ---------------------------------------------------------------- run
 
@@ -360,7 +389,9 @@ class PipelinedSweep:
                     icarry = torch.zeros(r1 - r0 + 1, dtype=torch.int32,
                                          device=dev)
                 t0 = time.perf_counter()
-                p = self._enqueue(ci, ri, istate, icarry)
+                p = self._enqueue((self._codes_dev[lo:hi],
+                                   self._scores_dev[ri], self._reset_dev[ri],
+                                   istate, icarry), r0, lo)
                 pend.append(p)
                 t1 = time.perf_counter()
                 self.prof["dispatch"] += t1 - t0
@@ -389,7 +420,8 @@ class PipelinedSweep:
         results += [f.result() for f in futures]
         self.prof["drain"] += time.perf_counter() - t_drain
         t_tail = time.perf_counter()
-        resolved = _merge_resolved(results)
+        resolved = (None if self._database is None
+                    else _merge_resolved(results))
         self.prof["tail"] += time.perf_counter() - t_tail
         return resolved, [r.keys for r in results]
 

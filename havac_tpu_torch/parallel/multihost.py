@@ -1,0 +1,168 @@
+"""Processes, shards and host-local staging for the 1-D mesh sweep.
+
+The counterpart of the 1-D half of `havac_tpu/parallel/multihost.py`:
+
+  1. every process calls :func:`initialize` (``torch.distributed`` over a
+     TCP rendezvous, with the backend the caller names: ``nccl`` for CUDA
+     tensors, ``gloo`` for host memory);
+  2. :func:`global_sequence_mesh` builds one :class:`ShardMesh` over every
+     process's shards (shard g = rank * shards_per_process + i);
+  3. each process stages only its own shards' symbols
+     (:func:`host_local_codes`, :func:`local_row_range`);
+  4. each process resolves only its own shards' hits; coordinates are
+     global, so the processes' hit lists together are the whole result.
+
+In one process (``group`` None) every shard is local and nothing is
+exchanged between processes. The 2-D (sequence x model) mesh and the JAX
+package's replicated record-cap collectives have no counterpart here: the
+sweep kernel counts its keys exactly and regrows a buffer locally.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+class ShardMesh:
+    """A 1-D mesh of D sequence shards: the port's stand-in for a 1-D
+    ``jax.sharding.Mesh``.
+
+    ``devices`` lists this process's shards in order; a device may repeat
+    (several shards on one card, or on the CPU). ``group`` is the
+    ``torch.distributed`` process group the shards span, or None for one
+    process. Every process holds ``len(devices)`` shards, and shard g lives
+    on process g // len(devices). ``shape`` is ``{axis: D}`` and
+    ``axis_names`` ``(axis,)``, so ``mesh.shape[axis]`` reads as with JAX.
+    """
+
+    def __init__(self, devices: Sequence[Union[str, torch.device]],
+                 group=None, axis: str = "seq") -> None:
+        self.devices = [torch.device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("a mesh needs at least one shard")
+        self.group = group
+        self.axis = axis
+        self.world_size = 1 if group is None else dist.get_world_size(group)
+        self.rank = 0 if group is None else dist.get_rank(group)
+        self.shape = {axis: self.world_size * len(self.devices)}
+        self.axis_names = (axis,)
+
+    @property
+    def backend(self) -> Optional[str]:
+        """The group's backend (``"gloo"``, ``"nccl"``), None in one
+        process."""
+        return None if self.group is None else dist.get_backend(self.group)
+
+    @property
+    def shards_per_process(self) -> int:
+        return len(self.devices)
+
+    def global_rank(self, rank: int) -> int:
+        """The global rank of the group's ``rank``: what point-to-point
+        calls name."""
+        return dist.get_global_rank(self.group, rank)
+
+    def __repr__(self) -> str:
+        return (f"ShardMesh({self.axis}={self.shape[self.axis]}, rank "
+                f"{self.rank}/{self.world_size}, devices "
+                f"{[str(d) for d in self.devices]}, backend {self.backend})")
+
+
+def initialize(coordinator_address: str, num_processes: int,
+               process_id: int, backend: str = "nccl") -> None:
+    """Join ``torch.distributed``'s default group (no-op when it is already
+    initialised): ``coordinator_address`` is ``host:port`` of the TCP
+    rendezvous (or a ``tcp://`` URL), as JAX's ``initialize`` takes it.
+    ``backend`` is the caller's choice; nothing switches it."""
+    if dist.is_initialized():
+        return
+    url = (coordinator_address if "://" in coordinator_address
+           else f"tcp://{coordinator_address}")
+    dist.init_process_group(backend, init_method=url,
+                            world_size=int(num_processes),
+                            rank=int(process_id))
+
+
+def global_sequence_mesh(axis: str = "seq",
+                         devices: Optional[Sequence] = None,
+                         group=None) -> ShardMesh:
+    """One mesh over every process's shards. ``devices`` are this process's
+    shards (default: its current CUDA device, one shard); ``group`` defaults
+    to the default group when ``torch.distributed`` is initialised. Every
+    process must hold the same number of shards (checked across the group;
+    a collective, so every process calls this)."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: name this process's shards "
+                               "with devices=")
+        devices = [torch.device("cuda", torch.cuda.current_device())]
+    if group is None and dist.is_initialized():
+        group = dist.group.WORLD
+    mesh = ShardMesh(devices, group=group, axis=axis)
+    if group is not None:
+        counts = all_gather_int(mesh, len(mesh.devices))
+        if len(set(counts)) != 1:
+            raise ValueError(f"processes hold unequal shard counts {counts}")
+    return mesh
+
+
+def shard_width(length: int, mesh: ShardMesh, axis: str = "seq") -> int:
+    """Positions a shard covers: the database is cut into D equal shards,
+    the last ones padded past its end."""
+    return max(1, -(-int(length) // mesh.shape[axis]))
+
+
+def local_row_range(total_rows: int, mesh: ShardMesh, axis: str = "seq"
+                    ) -> Tuple[int, int]:
+    """[lo, hi) of the leading-axis rows this process's shards cover when
+    ``total_rows`` rows are cut into D equal shards."""
+    D = mesh.shape[axis]
+    if total_rows % D:
+        raise ValueError(f"{total_rows} rows do not cut into {D} shards")
+    per = total_rows // D * mesh.shards_per_process
+    lo = mesh.rank * per
+    return lo, lo + per
+
+
+def host_local_codes(codes: np.ndarray, mesh: ShardMesh, axis: str = "seq"
+                     ) -> Tuple[np.ndarray, int]:
+    """This process's contiguous slice of the database and its global
+    offset (its shards' positions; the slice ends early where the database
+    does)."""
+    L = codes.shape[0]
+    W = shard_width(L, mesh, axis)
+    lo, hi = local_row_range(W * mesh.shape[axis], mesh, axis)
+    return codes[min(lo, L):min(hi, L)], lo
+
+
+def collective_device(mesh: ShardMesh) -> torch.device:
+    """Where the group's small collectives keep their tensors: host memory
+    under gloo, this process's first card under NCCL."""
+    return (mesh.devices[0] if mesh.backend == "nccl"
+            else torch.device("cpu"))
+
+
+def all_reduce_max(mesh: ShardMesh, value: int) -> int:
+    """The largest ``value`` over the group's processes (``value`` itself
+    in one process)."""
+    if mesh.group is None:
+        return int(value)
+    t = torch.tensor([int(value)], dtype=torch.int64,
+                     device=collective_device(mesh))
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
+    return int(t.item())
+
+
+def all_gather_int(mesh: ShardMesh, value: int) -> list:
+    """Every process's ``value``, in rank order."""
+    if mesh.group is None:
+        return [int(value)]
+    dev = collective_device(mesh)
+    t = torch.tensor([int(value)], dtype=torch.int64, device=dev)
+    out = [torch.empty_like(t) for _ in range(mesh.world_size)]
+    dist.all_gather(out, t, group=mesh.group)
+    return [int(x.item()) for x in out]

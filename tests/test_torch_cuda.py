@@ -14,6 +14,9 @@ import torch
 from havac_tpu_torch.engine import Havac
 from havac_tpu_torch.ops import ssv_cuda
 from havac_tpu_torch.ops.ssv_torch import ssv_sweep_plain
+from havac_tpu_torch.parallel.multihost import (ShardMesh,
+                                                global_sequence_mesh,
+                                                initialize)
 from havac_tpu_torch.testing.generator import generate_planted_fixture
 from havac_tpu_torch.testing.percell import (dp_matrix_kernel, dp_matrix_rows,
                                              dp_matrix_torch)
@@ -120,6 +123,96 @@ def test_cuda_engine_matches_cpu_engine(dev):
     assert runs[0].hits().as_tuples() == runs[1].hits().as_tuples()
     for x, y in zip(runs[0].raw_hits(), runs[1].raw_hits()):
         np.testing.assert_array_equal(x, y)
+
+
+def _mesh_runs(dev, mesh, **kw):
+    """The planted search on ``mesh`` (on the card) and on 3 CPU shards."""
+    models, records = generate_planted_fixture(
+        seed=23, model_length=30, sequence_length=9000, num_models=4)
+    fasta = "".join(f">{n}\n{s}\n" for n, s in records)
+    runs = []
+    for device, m in ((dev, mesh), ("cpu", ShardMesh(["cpu"] * 3))):
+        e = Havac(p_value=0.05, device=device, mesh=m, dist_rows_per_step=17,
+                  **kw)
+        e.load_phmm(models).load_sequence(fasta, is_text=True).run()
+        runs.append(e)
+    assert len(runs[0].hits()) > 0
+    assert runs[0].hits().as_tuples() == runs[1].hits().as_tuples()
+    for x, y in zip(runs[0].raw_hits(), runs[1].raw_hits()):
+        np.testing.assert_array_equal(x, y)
+    return runs
+
+
+@pytest.mark.parametrize("isolate", [False, True])
+def test_mesh_of_three_shards_on_the_card(dev, isolate):
+    """D = 3 on cuda:0 (one stream, the seams passed as tensors) equals the
+    plain CPU mesh run; every active (shard, step) pair is one launch."""
+    before = ssv_cuda.LAUNCHES
+    cuda, cpu = _mesh_runs(dev, ShardMesh([dev] * 3), isolate_models=isolate,
+                           dist_hit_capacity=5)
+    geo = cuda.stats.chunk_geometry
+    assert geo["launches"] == 3 * geo["row_chunks"] == cpu.stats.num_chunks
+    assert (ssv_cuda.LAUNCHES - before
+            == geo["launches"] + cuda.stats.overflow_retries)
+    assert cuda.stats.overflow_retries > 0
+
+
+def test_mesh_sweep_orders_its_fills_before_its_launches(dev, monkeypatch):
+    """What the sweep fills on a device (the shards' zero row states among
+    it) is ordered before its launches, and its streams start after the
+    caller's queued work: with a long kernel queued right after the staging
+    of the scores, on whatever stream staged them, and freed blocks of the
+    state's size holding large values, the hits equal the CPU mesh's. (A
+    state filled on another stream than the one that reads it would start
+    from those values.) The sweep runs once on each of the pool's 32
+    streams first, so that no allocation in the checked run reaches
+    ``cudaMalloc``, which would synchronise the device and hide a race."""
+    from havac_tpu_torch.parallel.swar_dist import SwarDistributedSweep
+
+    rng = np.random.default_rng(31)
+    codes = rng.integers(0, 4, 30_011).astype(np.uint8)
+    scores = rng.integers(-40, 90, (70, 4)).astype(np.int8)
+    cpu = SwarDistributedSweep(codes, ShardMesh(["cpu"] * 3),
+                               rows_per_step=17).run(scores)
+    sweep = SwarDistributedSweep(codes, ShardMesh([dev] * 3),
+                                 rows_per_step=17)
+    for _ in range(32):
+        sweep.run(scores)
+    staged = SwarDistributedSweep._staged
+
+    def staged_then_busy(self, *args):
+        out = staged(self, *args)
+        torch.cuda._sleep(500_000_000)  # ~0.25 s on the current stream
+        return out
+
+    monkeypatch.setattr(SwarDistributedSweep, "_staged", staged_then_busy)
+    poison = [torch.full((sweep.shard_width,), 250, dtype=torch.int32,
+                         device=dev) for _ in range(3)]
+    del poison
+    torch.cuda._sleep(500_000_000)
+    rows, pos = sweep.run(scores)
+    assert cpu[0].size > 0
+    np.testing.assert_array_equal(rows, cpu[0])
+    np.testing.assert_array_equal(pos, cpu[1])
+
+
+def test_mesh_nccl_at_world_size_1(dev):
+    """NCCL on a one-process group (the card's only GPU): D = 1, its abort
+    agreement an all-reduce on the card, equal to the CPU mesh."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        mesh = global_sequence_mesh(devices=[dev])
+        assert mesh.backend == "nccl" and mesh.shape == {"seq": 1}
+        _mesh_runs(dev, mesh)
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("card,reset", [(4, False), (4, True), (20, False),

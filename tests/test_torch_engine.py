@@ -268,8 +268,8 @@ def test_usage_errors():
         eng.warmup()
     with pytest.raises(HavacUsageError):
         eng.hits()
-    with pytest.raises(HavacUsageError, match="not yet ported"):
-        Havac(device="cpu", mesh=object())
+    with pytest.raises(HavacUsageError, match="ShardMesh"):
+        Havac(device="cpu", mesh=object())  # not a mesh of the port's
     with pytest.raises(HavacUsageError, match="unsupported device"):
         Havac(device="meta")
     with pytest.raises(HavacUsageError, match="strand"):

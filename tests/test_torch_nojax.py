@@ -1,5 +1,6 @@
-"""The port runs without JAX and without the JAX package: a CPU search, a
-multi-file scan, a per-cell dump and the op-mix roofline in a fresh
+"""The port runs without JAX and without the JAX package: a CPU search, the
+same search on a 3-shard mesh, a multi-file scan, a per-cell dump and the
+op-mix roofline in a fresh
 interpreter leave `jax` and `havac_tpu` out of sys.modules; and no module
 of the port, nor `chip_smoke.py`, names either in an import."""
 
@@ -23,6 +24,14 @@ fasta = "".join(f">{n}\n{s}\n" for n, s in records)
 engine = Havac(p_value=0.05, device="cpu", chunk_symbols=700)
 engine.load_phmm(models).load_sequence(fasta, is_text=True).run()
 
+from havac_tpu_torch.parallel.multihost import ShardMesh
+import havac_tpu_torch.parallel.engine_dist
+import havac_tpu_torch.testing.multihost_worker
+
+mesh = Havac(p_value=0.05, device="cpu", mesh=ShardMesh(["cpu"] * 3),
+             dist_rows_per_step=16)
+mesh.load_phmm(models).load_sequence(fasta, is_text=True).run()
+
 import os
 import numpy as np
 from havac_tpu_torch.testing.percell import dp_matrix_kernel
@@ -40,6 +49,7 @@ from havac_tpu_torch.tools import roofline
 
 mix = roofline.op_mix(roofline.make_inputs("perrow", 4, 10), 2, copies=2)
 print(json.dumps({"hits": len(engine.hits()), "scanned": scanned,
+                  "mesh": mesh.hits().as_tuples() == engine.hits().as_tuples(),
                   "cells": matrix.numel(), "roofline": list(mix.shape),
                   "jax": sorted(m for m in sys.modules
                                 if m == "jax" or m.startswith("jax.")),
@@ -59,6 +69,7 @@ def test_port_search_imports_no_jax(tmp_path):
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["hits"] > 0
     assert out["scanned"] == [out["hits"]] * 2
+    assert out["mesh"] is True
     assert out["cells"] == 9 * 300
     assert out["roofline"] == [2, 4, 128]
     assert out["jax"] == []

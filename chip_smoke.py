@@ -90,6 +90,24 @@ Phases (each prints its own lines; any failure exits non-zero):
              first step checkpoint ends ABORTED and a resume from it equals
              the single-device run. One GPU: no multi-GPU number comes from
              this phase (NCCL refuses two ranks on one GPU).
+10. mesh2d — the 2-D (sequence x model) mesh
+             (havac_tpu_torch.parallel.swar_dist2d), all on cuda:0: (a) the
+             main workload through Havac(device="cuda",
+             mesh=sequence_model_mesh(2, ...), isolate_models=True) at 2 x 2
+             and 4 x 2 shards, R = 1,024: hits and raw keys equal a
+             single-device isolated run, one launch per active (group,
+             shard, step), a sample of hits re-derives; D_seq, D_model, the
+             group bounds, rows and S, T, launches, sweep seconds, GCUPS
+             beside phase 4's and the isolated run's, device time and idle
+             share and the host phases printed; (b) at the 8 Mb cut, 2 x 2,
+             R = 128, a run aborted after its first step checkpoint ends
+             ABORTED and a resume equals the single-device isolated run of
+             the cut; (c) two gloo processes on cuda:0, each one seq shard
+             of both model groups (seams cross processes), at the cut with
+             a checkpoint path: their hits together equal that run, each
+             logs the single-process warning and writes no checkpoint; (d)
+             the dry run, parallel.dryrun.dryrun_multichip(8, "cuda:0").
+             Prints the phase's wall time.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; the run fails if a kernel of the path did not launch. The
@@ -121,9 +139,11 @@ import torch
 from havac_tpu_torch.engine import Havac, HavacRunState, cli
 from havac_tpu_torch.ops import ssv_cuda
 from havac_tpu_torch.ops.ssv_torch import MAX_POS, MAX_ROW, ssv_sweep_plain
+from havac_tpu_torch.parallel.dryrun import dryrun_multichip
 from havac_tpu_torch.parallel.multihost import (ShardMesh,
                                                 global_sequence_mesh,
-                                                initialize)
+                                                initialize,
+                                                sequence_model_mesh)
 from havac_tpu_torch.testing.multihost_worker import AbortAfterCheckpoint
 from havac_tpu_torch.testing.percell import (compare_matrices,
                                              dp_matrix_kernel, dp_matrix_rows,
@@ -169,6 +189,7 @@ MESH_ROWS = (128, 1024)  # rows a step: the JAX engine's default, and larger
 MESH_CUT = 8_000_000  # positions of the chromosome in (c) and (d)
 MESH_WORKERS = 2
 WORKER_TIMEOUT = 300
+MESH2D_GRIDS = ((2, 2), (4, 2))  # (D_seq, D_model) of phase 10 (a)
 RESOLVED = ("sequence_index", "sequence_position", "phmm_index",
             "phmm_position")
 
@@ -588,30 +609,36 @@ def same_hits(tag, got, want) -> None:
                                  f"{y.size})")
 
 
-def mesh_run(tag, dev, engine, mesh, rows, smi, main_gcups) -> Havac:
-    """The main workload on ``mesh``; checks its launches and hits against
-    phase 4's engine and prints its geometry, rate and host phases."""
+def mesh_run(tag, dev, engine, mesh, rows, smi, main_gcups,
+             label="mesh", yardstick="phase 4's", **kw) -> Havac:
+    """The main workload on ``mesh`` (``kw``: more engine options); checks
+    its launches (one per active (group, shard, step), plus regrows) and
+    its hits against ``engine`` and prints its geometry, rate and host
+    phases."""
     ssv_cuda.LAUNCHES = 0
-    e = Havac(p_value=P_VALUE, device=dev, mesh=mesh, dist_rows_per_step=rows)
+    e = Havac(p_value=P_VALUE, device=dev, mesh=mesh, dist_rows_per_step=rows,
+              **kw)
     e.load_phmm(engine.models).load_sequence(engine.database)
     t0 = time.perf_counter()
     e.run()
     wall = time.perf_counter() - t0
     launches = ssv_cuda.LAUNCHES
     st, geo = e.stats, e.stats.chunk_geometry
-    if (geo["launches"] != geo["shards"] * geo["row_chunks"]
+    active = geo["shards"] * sum(geo.get("group_row_chunks",
+                                         [geo["row_chunks"]]))
+    if (geo["launches"] != active
             or launches != geo["launches"] + st.overflow_retries):
         raise AssertionError(f"{tag}: LAUNCHES={launches}, geometry {geo}, "
                              f"regrows {st.overflow_retries}")
     same_hits(tag, e, engine)
-    log(f"[mesh] {tag}: D={geo['shards']} R={geo['rows_per_step']} "
+    log(f"[{label}] {tag}: D={geo['shards']} R={geo['rows_per_step']} "
         f"S={geo['row_chunks']} T={geo['steps']} launches={geo['launches']} "
         f"(LAUNCHES={launches}, regrows={st.overflow_retries}) shard width "
         f"{geo['shard_width']}: sweep {st.sweep_seconds:.4f} s (run "
         f"{wall:.3f} s), {st.gcups:.2f} GCUPS beside phase 4's "
-        f"{main_gcups:.2f}; hits {len(e.hits())} and raw keys == phase 4's; "
-        f"{smi}")
-    log(f"[mesh] {tag} phases "
+        f"{main_gcups:.2f}; hits {len(e.hits())} and raw keys == "
+        f"{yardstick}; {smi}")
+    log(f"[{label}] {tag} phases "
         f"{json.dumps({k: round(v, 4) for k, v in st.pipeline_prof.items()})}")
     # One launch at the run's shape (a shard of the chromosome x R rows),
     # timed alone: launches x its time is the run's device time, the rest
@@ -627,7 +654,7 @@ def mesh_run(tag, dev, engine, mesh, rows, smi, main_gcups) -> Havac:
     ms = cuda_ms(lambda: ssv_cuda.launch(sym, sc, zs, zc, None, 0, 0, out),
                  reps=5)
     busy = geo["launches"] * ms / 1e3
-    log(f"[mesh] {tag}: one launch of {sym.shape[0]} x {rows} {ms:.4f} ms "
+    log(f"[{label}] {tag}: one launch of {sym.shape[0]} x {rows} {ms:.4f} ms "
         f"({sym.shape[0] * rows / ms / 1e6:.2f} GCUPS); x {geo['launches']} "
         f"launches = {busy:.4f} s of device time, {busy / st.sweep_seconds:.4f}"
         f" of the sweep (idle {1 - busy / st.sweep_seconds:.4f}); {smi}")
@@ -671,63 +698,17 @@ def phase_mesh(dev, smi, engine, work, main_gcups) -> None:
     hmm = os.path.join(work, "models.hmm")
     single = Havac(p_value=P_VALUE, device=dev).load_phmm(hmm)
     single.load_sequence(cut).run()
-    out_dir = os.path.join(work, "workers")
-    os.makedirs(out_dir)
-    init = f"127.0.0.1:{_free_port()}"
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "havac_tpu_torch.testing.multihost_worker",
-         "--case", "engine", "--init", init, "--world", str(MESH_WORKERS),
-         "--rank", str(r), "--backend", "gloo", "--device", str(dev),
-         "--shards", "2", "--rows-per-step", str(MESH_ROWS[0]), "--out",
-         out_dir, "--hmm", hmm, "--fasta", cut, "--pvalue", str(P_VALUE)],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(MESH_WORKERS)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=WORKER_TIMEOUT)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, text) in enumerate(zip(procs, logs)):
-        if p.returncode != 0:
-            raise AssertionError(f"worker {r} exited {p.returncode}:\n"
-                                 f"{text[-4000:]}")
-        log(f"[mesh] gloo worker {r}: {text.strip().splitlines()[-1]}")
-    ranks = [np.load(os.path.join(out_dir, f"rank{r}.npz"))
-             for r in range(MESH_WORKERS)]
-    for r, z in enumerate(ranks):
-        prof = {k: round(v, 4) for k, v in json.loads(str(z["prof"])).items()}
-        log(f"[mesh] gloo worker {r} phases {json.dumps(prof)}")
-    keys = ("si", "sp", "pi", "pp")
-    cols = [np.concatenate([z[k] for z in ranks]) for k in keys]
-    want = single.hits()
-    order = np.lexsort((want.phmm_position, want.phmm_index,
-                        want.sequence_position, want.sequence_index))
-    got_order = np.lexsort(cols[::-1])
-    if len(want) == 0 or not all(
-            np.array_equal(c[got_order], getattr(want, f)[order])
-            for c, f in zip(cols, RESOLVED)):
-        raise AssertionError(f"gloo workers: {cols[0].size} hits, a single "
-                             f"device {len(want)}")
-    raw = np.sort(np.concatenate([(z["rows"] << 38) | z["pos"]
-                                  for z in ranks]))
-    rows, pos = single.raw_hits()
-    if not np.array_equal(raw, (rows << 38) | pos):
-        raise AssertionError("gloo workers: raw hits differ")
+    ranks = run_workers("mesh", "engine", dev, 2,
+                        os.path.join(work, "workers"), "--rows-per-step",
+                        str(MESH_ROWS[0]), "--hmm", hmm, "--fasta", cut,
+                        "--pvalue", str(P_VALUE))
+    same_worker_hits("gloo workers", ranks, single)
     launches = [int(z["launches"]) for z in ranks]
-    if any(int(z["kernel_launches"]) != n + int(z["regrows"])
-           for z, n in zip(ranks, launches)):
-        raise AssertionError("gloo workers: LAUNCHES "
-                             f"{[int(z['kernel_launches']) for z in ranks]} "
-                             f"!= launches {launches} + regrows")
     log(f"[mesh] {MESH_WORKERS} gloo processes x 2 shards on {dev} over "
         f"{MESH_CUT} positions x {engine.scores.shape[0]} rows "
-        f"(R={MESH_ROWS[0]}): {cols[0].size} hits together == a single-device "
-        f"run's; launches {launches}; sweep seconds "
+        f"(R={MESH_ROWS[0]}): {len(single.hits())} hits together == a "
+        f"single-device run's; launches {launches}; sweep seconds "
         f"{[round(float(z['sweep_seconds']), 4) for z in ranks]}, wall "
         f"{time.perf_counter() - t0:.3f} s with start-up; {smi}")
 
@@ -758,6 +739,168 @@ def phase_mesh(dev, smi, engine, work, main_gcups) -> None:
         f"{second.stats.chunk_geometry['steps']} ({second.stats.num_chunks} "
         f"launches, LAUNCHES={ssv_cuda.LAUNCHES}) == the single-device run "
         f"({len(second.hits())} hits)")
+    return cut
+
+
+def run_workers(tag, case, dev, shards, out_dir, *args) -> list:
+    """``MESH_WORKERS`` gloo processes of multihost_worker on ``dev``, each
+    under ``WORKER_TIMEOUT``; their npz results in rank order."""
+    os.makedirs(out_dir)
+    init = f"127.0.0.1:{_free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "havac_tpu_torch.testing.multihost_worker",
+         "--case", case, "--init", init, "--world", str(MESH_WORKERS),
+         "--rank", str(r), "--backend", "gloo", "--device", str(dev),
+         "--shards", str(shards), "--out", out_dir, *args],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(MESH_WORKERS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=WORKER_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{tag} worker {r} exited {p.returncode}:\n"
+                                 f"{text[-4000:]}")
+        log(f"[{tag}] gloo worker {r}: {text.strip().splitlines()[-1]}")
+    ranks = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
+             for r in range(MESH_WORKERS)]
+    for r, z in enumerate(ranks):
+        prof = {k: round(v, 4) for k, v in json.loads(str(z["prof"])).items()}
+        log(f"[{tag}] gloo worker {r} phases {json.dumps(prof)}")
+    return ranks
+
+
+def same_worker_hits(tag, ranks, single) -> None:
+    """The workers' resolved and raw hits together == ``single``'s, and
+    each worker's kernel count == its launches + regrows."""
+    keys = ("si", "sp", "pi", "pp")
+    cols = [np.concatenate([z[k] for z in ranks]) for k in keys]
+    want = single.hits()
+    order = np.lexsort((want.phmm_position, want.phmm_index,
+                        want.sequence_position, want.sequence_index))
+    got_order = np.lexsort(cols[::-1])
+    if len(want) == 0 or not all(
+            np.array_equal(c[got_order], getattr(want, f)[order])
+            for c, f in zip(cols, RESOLVED)):
+        raise AssertionError(f"{tag}: {cols[0].size} hits, a single "
+                             f"device {len(want)}")
+    raw = np.sort(np.concatenate([(z["rows"] << 38) | z["pos"]
+                                  for z in ranks]))
+    rows, pos = single.raw_hits()
+    if not np.array_equal(raw, (rows << 38) | pos):
+        raise AssertionError(f"{tag}: raw hits differ")
+    launches = [int(z["launches"]) for z in ranks]
+    if any(int(z["kernel_launches"]) != n + int(z["regrows"])
+           for z, n in zip(ranks, launches)):
+        raise AssertionError(f"{tag}: LAUNCHES "
+                             f"{[int(z['kernel_launches']) for z in ranks]} "
+                             f"!= launches {launches} + regrows")
+
+
+def phase_mesh2d(dev, smi, engine, work, cut, main_gcups) -> None:
+    t_phase = time.perf_counter()
+    # (a) the main workload, isolated, on two 2-D meshes of cuda:0 shards,
+    # against a single-device isolated run.
+    ssv_cuda.LAUNCHES = 0
+    iso = Havac(p_value=P_VALUE, device=dev, isolate_models=True)
+    iso.load_phmm(engine.models).load_sequence(engine.database).run()
+    if ssv_cuda.LAUNCHES != iso.stats.num_chunks + iso.stats.overflow_retries:
+        raise AssertionError(f"isolated run: LAUNCHES={ssv_cuda.LAUNCHES}")
+    log(f"[mesh2d] single-device isolated run: {iso.stats.num_chunks} "
+        f"launches, sweep {iso.stats.sweep_seconds:.4f} s, "
+        f"{iso.stats.gcups:.2f} GCUPS, {len(iso.hits())} hits; {smi}")
+    prefix = engine.phmm_prefix
+    for d_seq, d_model in MESH2D_GRIDS:
+        mesh = sequence_model_mesh(d_model, devices=[dev] * (d_seq * d_model))
+        tag = f"{d_seq}x{d_model} R={MESH_ROWS[-1]}"
+        e = mesh_run(tag, dev, iso, mesh, MESH_ROWS[-1], smi, main_gcups,
+                     label="mesh2d", yardstick="the isolated run's",
+                     isolate_models=True)
+        geo = e.stats.chunk_geometry
+        b = geo["group_bounds"]
+        rows = [int(prefix[b[m + 1]] - prefix[b[m]]) for m in range(d_model)]
+        log(f"[mesh2d] {tag}: D_seq={d_seq} D_model={d_model} group bounds "
+            f"{b} rows {rows} S {geo['group_row_chunks']} T={geo['steps']}; "
+            f"{e.stats.gcups:.2f} GCUPS beside the isolated run's "
+            f"{iso.stats.gcups:.2f} and phase 4's {main_gcups:.2f}")
+        t0 = time.perf_counter()
+        report = e.verify(sample=min(10_000, e.stats.num_raw_hits))
+        if not report.all_verified:
+            raise AssertionError(
+                f"mesh2d {tag}: {report.num_hits - report.num_verified} "
+                "sampled hits failed")
+        log(f"[mesh2d] {tag}: verified {report.num_verified}/"
+            f"{report.num_hits} sampled raw hits "
+            f"({time.perf_counter() - t0:.3f} s)")
+        del e
+    del iso
+
+    # (b) abort after the first step checkpoint, then resume, at the cut.
+    hmm = os.path.join(work, "models.hmm")
+    single = Havac(p_value=P_VALUE, device=dev, isolate_models=True)
+    single.load_phmm(hmm).load_sequence(cut).run()
+    ckpt = os.path.join(work, "mesh2d.ckpt.npz")
+
+    def cut_run(cls):
+        e = cls(p_value=P_VALUE, device=dev,
+                mesh=sequence_model_mesh(2, devices=[dev] * 4),
+                dist_rows_per_step=MESH_ROWS[0], isolate_models=True,
+                checkpoint_path=ckpt)
+        return e.load_phmm(hmm).load_sequence(cut)
+
+    first = cut_run(AbortAfterCheckpoint).run_async()
+    if first.wait(timeout=600) != HavacRunState.ABORTED:
+        raise AssertionError(f"aborted 2-D run ended {first.state}")
+    if not os.path.exists(ckpt):
+        raise AssertionError("no 2-D step checkpoint was written")
+    ssv_cuda.LAUNCHES = 0
+    second = cut_run(Havac).run()
+    if second.resumed_chunks != 4 or os.path.exists(ckpt):
+        raise AssertionError(f"2-D resumed at {second.resumed_chunks}")
+    if ssv_cuda.LAUNCHES != (second.stats.num_chunks
+                             + second.stats.overflow_retries):
+        raise AssertionError(f"resumed 2-D run: LAUNCHES={ssv_cuda.LAUNCHES}")
+    same_hits("resumed 2-D mesh run", second, single)
+    log(f"[mesh2d] 2x2 R={MESH_ROWS[0]} at {MESH_CUT} positions: abort after "
+        f"the step-4 checkpoint: {first.state.value}; the resume from step "
+        f"{second.resumed_chunks} of {second.stats.chunk_geometry['steps']} "
+        f"({second.stats.num_chunks} launches, LAUNCHES={ssv_cuda.LAUNCHES}) "
+        f"== the single-device isolated run ({len(second.hits())} hits)")
+
+    # (c) two gloo processes, each one seq shard of both model groups.
+    t0 = time.perf_counter()
+    ranks = run_workers("mesh2d", "engine2d", dev, 2,
+                        os.path.join(work, "workers2d"), "--rows-per-step",
+                        str(MESH_ROWS[0]), "--hmm", hmm, "--fasta", cut,
+                        "--pvalue", str(P_VALUE))
+    same_worker_hits("mesh2d gloo workers", ranks, single)
+    if not all(bool(z["warned"]) and z["ckpt_files"].size == 0
+               for z in ranks):
+        raise AssertionError("a 2-D worker wrote a checkpoint or did not "
+                             "warn")
+    log(f"[mesh2d] {MESH_WORKERS} gloo processes x 2 shards (2x2, each one "
+        f"seq shard of both groups) on {dev} over {MESH_CUT} positions, "
+        f"R={MESH_ROWS[0]}: hits together == the single-device isolated run "
+        f"({len(single.hits())}); launches "
+        f"{[int(z['launches']) for z in ranks]}, T={int(ranks[0]['steps'])};"
+        f" each warned and wrote no checkpoint; sweep seconds "
+        f"{[round(float(z['sweep_seconds']), 4) for z in ranks]}, wall "
+        f"{time.perf_counter() - t0:.3f} s with start-up; {smi}")
+
+    # (d) the dry run.
+    ssv_cuda.LAUNCHES = 0
+    out = dryrun_multichip(8, dev)
+    if ssv_cuda.LAUNCHES == 0:
+        raise AssertionError("the dry run launched no kernel")
+    log(f"[mesh2d] dryrun_multichip(8, {dev}): {json.dumps(out)}, "
+        f"LAUNCHES={ssv_cuda.LAUNCHES}")
+    log(f"[mesh2d] phase 10 wall {time.perf_counter() - t_phase:.3f} s")
 
 
 def run_paths(dev, smi, work, max_err) -> dict:
@@ -887,7 +1030,8 @@ def run_paths(dev, smi, work, max_err) -> dict:
     # ---- the per-cell readouts, then the multi-file paths
     dump = phase_percell(dev, engine, smi, per_word["dump"])
     phase_scan(dev, engine, hmm, work)
-    phase_mesh(dev, smi, engine, work, st.gcups)
+    cut = phase_mesh(dev, smi, engine, work, st.gcups)
+    phase_mesh2d(dev, smi, engine, work, cut, st.gcups)
 
     return {"kernels": [
         {"name": "ssv_sweep", "route": "cuda", "source": SOURCE,

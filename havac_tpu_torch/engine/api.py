@@ -15,7 +15,10 @@ plain PyTorch version. Neither falls back to the other, and
 with ``device``) the sweep is the 1-D wavefront of
 `havac_tpu_torch/parallel/swar_dist.py`: the database in D shards, one
 kernel launch per shard and step, abort and checkpoints between steps; in a
-multi-process mesh each process reports its own shards' hits.
+multi-process mesh each process reports its own shards' hits. A mesh with a
+``model`` axis larger than 1 runs the 2-D sweep of
+`havac_tpu_torch/parallel/swar_dist2d.py` (model groups, each a wavefront
+of its own), which requires ``isolate_models=True``.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from havac_tpu_torch.engine.pipeline import (FIRST_KEY_CAP, PipelinedSweep,
                                              raw_pairs)
 from havac_tpu_torch.parallel.multihost import all_gather_int
 from havac_tpu_torch.parallel.swar_dist import SwarDistributedSweep
+from havac_tpu_torch.parallel.swar_dist2d import Swar2DSweep
 
 DEFAULT_P_VALUE = 0.02  # the reference CLI's default
 SCAN_PRODUCER_THREAD = "havac-scan-producer"
@@ -113,7 +117,12 @@ class Havac:
     ``mesh`` shards the database over ``mesh.shape[mesh_axis]`` shards and
     sweeps the models in row chunks of ``dist_rows_per_step`` (any R >= 1)
     as a wavefront; ``dist_hit_capacity`` is each launch's first key
-    buffer. R defaults to 1,024, not the JAX engine's 128: on an H100 a
+    buffer. A mesh with a ``model`` axis of D_model > 1
+    (:func:`~havac_tpu_torch.parallel.multihost.sequence_model_mesh`) cuts
+    the collection into D_model groups of whole models, each swept by its
+    own wavefront; it requires ``isolate_models=True`` (``run`` raises
+    :class:`HavacUsageError` without it) and checkpoints in one process
+    only. R defaults to 1,024, not the JAX engine's 128: on an H100 a
     step of 128 rows costs the host about as long to dispatch and pull as
     the kernel takes, and the sweep runs at half the rate. The JAX engine's ``dist_step_dispatch=False`` (one uncancelable
     dispatch) is refused: every step is its own set of launches.
@@ -594,25 +603,39 @@ class Havac:
     def _run_loop_distributed(self) -> None:
         try:
             P = self.scores.shape[0]
-            sweep = SwarDistributedSweep(
-                self._codes(), self.mesh, self.mesh_axis,
-                rows_per_step=self.dist_rows_per_step,
-                key_cap=self.dist_hit_capacity, database=self.database,
-                phmm_prefix=self.phmm_prefix)
-            self._chunks_total = -(-P // sweep.R) + sweep.D - 1
+            keyed = dict(rows_per_step=self.dist_rows_per_step,
+                         key_cap=self.dist_hit_capacity,
+                         database=self.database,
+                         phmm_prefix=self.phmm_prefix)
+            if self.mesh.shape.get("model", 1) > 1:
+                # 2-D (sequence x model): model groups across one axis (cut
+                # at model boundaries, exact under isolation), a sequence
+                # wavefront down each group's column.
+                if not self.isolate_models:
+                    raise HavacUsageError(
+                        "2-D (sequence x model) sharding requires "
+                        "isolate_models=True: model-axis cuts stop DP "
+                        "chains at group boundaries")
+                sweep = Swar2DSweep(self._codes(), self.mesh, self.mesh_axis,
+                                    "model", **keyed)
+                args = (self.scores, self.phmm_prefix, self.reset_rows)
+                hooks = self._mesh2d_checkpoint_hooks(sweep, P)
+            else:
+                sweep = SwarDistributedSweep(self._codes(), self.mesh,
+                                             self.mesh_axis, **keyed)
+                args = (self.scores, self.reset_rows)
+                hooks = self._mesh_checkpoint_hooks(sweep, P)
 
             def progress(step, total):
                 self._chunks_total = total
                 self._chunks_done = step
 
-            checkpoint_cb, resume, ck_path = self._mesh_checkpoint_hooks(
-                sweep, P)
-            log.info("mesh sweep: %d shards of %d positions, %d rows a step, "
-                     "backend=%s", sweep.D, sweep.shard_width, sweep.R,
-                     self.backend)
+            checkpoint_cb, resume, ck_path = hooks
+            log.info("mesh sweep: %s, %d shards of %d positions, %d rows a "
+                     "step, backend=%s", self.mesh.shape, sweep.D,
+                     sweep.shard_width, sweep.R, self.backend)
             t0 = time.perf_counter()
-            result = sweep.sweep(self.scores, self.reset_rows,
-                                 abort_event=self._abort_event,
+            result = sweep.sweep(*args, abort_event=self._abort_event,
                                  progress=progress,
                                  checkpoint_cb=checkpoint_cb, resume=resume,
                                  ckpt_every=4)
@@ -632,7 +655,6 @@ class Havac:
     def _finish_distributed(self, result, sweep: SwarDistributedSweep,
                             P: int, t_sweep: float) -> None:
         self._resolved, self._raw_keys = result
-        sched = sweep.schedule
         self.stats.num_chunks = sweep.launches
         self.stats.cells = self.database.padded_length * P
         self.stats.sweep_seconds = t_sweep
@@ -640,12 +662,17 @@ class Havac:
                                       for k in self._raw_keys)
         self.stats.overflow_retries = sweep.regrows
         self.stats.pipeline_prof = dict(sweep.prof)
+        row_chunks = [S for _, _, S in sweep.groups]
         self.stats.chunk_geometry = {
             "shards": sweep.D, "rows_per_step": sweep.R,
-            "row_chunks": sched.S, "steps": sched.T,
+            "row_chunks": max(row_chunks), "steps": sweep.T,
             "launches": sweep.launches, "shard_width": sweep.shard_width,
             "key_cap": sweep.key_cap, "lookahead": sweep.lookahead,
         }
+        if isinstance(sweep, Swar2DSweep):
+            self.stats.chunk_geometry.update(
+                model_groups=sweep.D_model, group_bounds=list(sweep.bounds),
+                group_row_chunks=row_chunks)
         log.info("distributed phases (s): %s",
                  {k: round(v, 3) for k, v in sweep.prof.items()})
         self._maybe_verify()
@@ -673,21 +700,9 @@ class Havac:
         path = self.checkpoint_path
         if mesh.world_size > 1:
             path += f".p{mesh.rank}"
-        shapes = ((len(sweep.shards), sweep.shard_width),
-                  (len(sweep.shards), sweep.R + 1))
-        resume = None
-        try:
-            with np.load(path) as ck:
-                if (int(ck["fingerprint"]) == fp
-                        and (ck["istate"].shape, ck["seam"].shape) == shapes):
-                    resume = (int(ck["next_t"]), ck["istate"], ck["seam"],
-                              ck["hit_rows"], ck["hit_positions"])
-                else:
-                    self._warn_stale_checkpoint(path)
-        except FileNotFoundError:
-            pass
-        except (KeyError, OSError, ValueError):
-            self._warn_stale_checkpoint(path)
+        resume = self._load_step_checkpoint(
+            path, fp, ((len(sweep.shards), sweep.shard_width),
+                       (len(sweep.shards), sweep.R + 1)))
         if mesh.world_size > 1:
             ts = all_gather_int(mesh, -1 if resume is None else resume[0])
             if min(ts) < 0 or min(ts) != max(ts):
@@ -699,9 +714,66 @@ class Havac:
         if resume is not None:
             self.resumed_chunks = resume[0]
             self._chunks_done = resume[0]
+        save = self._step_checkpoint_writer(path, fp)
 
         def checkpoint_cb(t_next, istate, ilo, seams, slo, rows_s, pos_s):
             del ilo, slo  # the mesh places the shards again on resume
+            save(t_next, istate, seams, rows_s, pos_s)
+
+        return checkpoint_cb, resume, path
+
+    def _mesh2d_checkpoint_hooks(self, sweep: Swar2DSweep, P: int):
+        """(checkpoint_cb, resume, path) for the 2-D mesh sweep, every 4
+        steps, in one process only, as in the JAX engine: the file holds
+        every group's row states (D_model, D_seq, W) and seams (D_model,
+        D_seq, R+1) and the hits so far, under the single-device
+        fingerprint with ``mesh2d:{D_seq}x{D_model}:{axis}`` on top. A file
+        of another run, or whose arrays have another shape, is stale. A
+        multi-process 2-D run gets a warning and no checkpoint."""
+        if not self.checkpoint_path:
+            return None, None, None
+        if self.mesh.world_size > 1:
+            log.warning("2-D mesh checkpointing is single-process only; "
+                        "this multi-process run proceeds WITHOUT "
+                        "checkpoints")
+            return None, None, None
+        fp = self._fingerprint(self.database.padded_length, P,
+                               sweep.shard_width, sweep.R)
+        fp = zlib.crc32(f"mesh2d:{sweep.D_seq}x{sweep.D_model}:"
+                        f"{self.mesh_axis}".encode(), fp)
+        path = self.checkpoint_path
+        grid = (sweep.D_model, sweep.D_seq)
+        resume = self._load_step_checkpoint(
+            path, fp, (grid + (sweep.shard_width,), grid + (sweep.R + 1,)))
+        if resume is not None:
+            self.resumed_chunks = resume[0]
+            self._chunks_done = resume[0]
+        return self._step_checkpoint_writer(path, fp), resume, path
+
+    def _load_step_checkpoint(self, path: str, fp: int, shapes):
+        """A mesh checkpoint's ``(next_t, istate, seam, hit_rows,
+        hit_positions)`` when ``path`` holds one of this run (its
+        fingerprint ``fp`` and its arrays' ``shapes``), else None (with a
+        warning when the file exists)."""
+        try:
+            with np.load(path) as ck:
+                if (int(ck["fingerprint"]) == fp
+                        and (ck["istate"].shape, ck["seam"].shape) == shapes):
+                    return (int(ck["next_t"]), ck["istate"], ck["seam"],
+                            ck["hit_rows"], ck["hit_positions"])
+        except FileNotFoundError:
+            return None
+        except (KeyError, OSError, ValueError):
+            pass
+        self._warn_stale_checkpoint(path)
+        return None
+
+    @staticmethod
+    def _step_checkpoint_writer(path: str, fp: int):
+        """save(t_next, istate, seams, rows, positions): one mesh
+        checkpoint, written whole or not at all."""
+
+        def save(t_next, istate, seams, rows_s, pos_s):
             tmp = path + ".tmp"
             np.savez(tmp, fingerprint=np.int64(fp), next_t=np.int64(t_next),
                      istate=istate, seam=seams, hit_rows=rows_s,
@@ -709,7 +781,7 @@ class Havac:
             os.replace(tmp + ".npz" if os.path.exists(tmp + ".npz") else tmp,
                        path)
 
-        return checkpoint_cb, resume, path
+        return save
 
     @staticmethod
     def _warn_stale_checkpoint(path: str) -> None:

@@ -22,12 +22,21 @@ Cases:
   restart every process from step 0 (``resumed`` 0) and still be exact.
 - ``engine``: ``Havac(mesh=...)`` on ``--hmm`` and ``--fasta``; resolved
   hits, raw hits and the run's launches.
+- ``2d``: :class:`Swar2DSweep` on a (sequence x model) mesh of
+  ``MODEL_PARALLEL`` model groups (:func:`sequence_model_mesh`), on the
+  JAX package's ``2d`` inputs (two models, cut at ``PREFIX_2D``).
+- ``engine2d``: ``Havac(mesh=<2-D>, isolate_models=True)`` on ``--hmm`` and
+  ``--fasta`` with a checkpoint path under ``--out``: the hits as for
+  ``engine``, whether the single-process warning was logged (``warned``)
+  and whether a checkpoint file appeared (``ckpt_files``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
+import logging.handlers
 import os
 import sys
 import time
@@ -40,20 +49,29 @@ from havac_tpu_torch.engine.pipeline import FIRST_KEY_CAP
 from havac_tpu_torch.ops import ssv_cuda
 
 P_VALUE = 0.05
+MODEL_PARALLEL = 2  # model groups of the 2-D cases
+PREFIX_2D = (0, 33, 64)  # the 2d case's two models
 
 
 class AbortAfterCheckpoint(Havac):
-    """A mesh engine that sets its abort flag right after its first step
-    checkpoint is written: a run killed between steps, deterministically."""
+    """A mesh engine (1-D or 2-D) that sets its abort flag right after its
+    first step checkpoint is written: a run killed between steps,
+    deterministically."""
 
-    def _mesh_checkpoint_hooks(self, sweep, P):
-        cb, resume, path = super()._mesh_checkpoint_hooks(sweep, P)
+    def _abort_after(self, hooks):
+        cb, resume, path = hooks
 
         def cb_then_abort(*payload):
             cb(*payload)
             self._abort_event.set()
 
         return cb_then_abort, resume, path
+
+    def _mesh_checkpoint_hooks(self, sweep, P):
+        return self._abort_after(super()._mesh_checkpoint_hooks(sweep, P))
+
+    def _mesh2d_checkpoint_hooks(self, sweep, P):
+        return self._abort_after(super()._mesh2d_checkpoint_hooks(sweep, P))
 
 
 def make_inputs(case: str):
@@ -70,6 +88,10 @@ def make_inputs(case: str):
         scores = np.full((30, 4), -40)
         scores[:, 0] = 110
         return codes.astype(np.uint8), scores.astype(np.int8), 16
+    if case == "2d":  # tests/multihost_worker.py make_inputs("2d", 8)
+        codes = rng.integers(0, 4, size=2 * 3072 * 4)
+        scores = rng.integers(-40, 110, size=(64, 4))
+        return codes.astype(np.uint8), scores.astype(np.int8), FIRST_KEY_CAP
     raise ValueError(case)
 
 
@@ -84,13 +106,42 @@ def planted_fasta() -> tuple:
 
 def _sweep(case: str, mesh, rows_per_step: int) -> dict:
     from havac_tpu_torch.parallel.swar_dist import SwarDistributedSweep
+    from havac_tpu_torch.parallel.swar_dist2d import Swar2DSweep
 
     codes, scores, cap = make_inputs(case)
-    sweep = SwarDistributedSweep(codes, mesh, rows_per_step=rows_per_step,
-                                 key_cap=cap)
-    rows, pos = sweep.run(scores)
+    if case == "2d":
+        sweep = Swar2DSweep(codes, mesh, rows_per_step=rows_per_step,
+                            key_cap=cap)
+        rows, pos = sweep.run(scores, np.asarray(PREFIX_2D))
+    else:
+        sweep = SwarDistributedSweep(codes, mesh,
+                                     rows_per_step=rows_per_step, key_cap=cap)
+        rows, pos = sweep.run(scores)
     return dict(rows=rows, pos=pos, launches=sweep.launches,
                 regrows=sweep.regrows, key_cap=sweep.key_cap)
+
+
+def _engine2d(mesh, args) -> dict:
+    """A 2-D engine run with a checkpoint path: it must warn and write no
+    checkpoint in a multi-process mesh."""
+    ckpt = os.path.join(args.out, "mesh2d.ckpt.npz")
+    records = logging.handlers.BufferingHandler(1 << 20)
+    logger = logging.getLogger("havac_tpu_torch.engine")
+    logger.addHandler(records)
+    try:
+        engine = Havac(p_value=args.pvalue, device=args.device, mesh=mesh,
+                       dist_rows_per_step=args.rows_per_step,
+                       isolate_models=True, checkpoint_path=ckpt)
+        engine.load_phmm(args.hmm).load_sequence(args.fasta).run()
+    finally:
+        logger.removeHandler(records)
+    result = _hits(engine)
+    result["warned"] = any("single-process only" in r.getMessage()
+                           for r in records.buffer)
+    result["ckpt_files"] = sorted(f for f in os.listdir(args.out)
+                                  if f.startswith("mesh2d.ckpt"))
+    result["steps"] = engine.stats.chunk_geometry["steps"]
+    return result
 
 
 def _hits(engine) -> dict:
@@ -130,7 +181,8 @@ def _ckpt_diverge(mesh, device, rank: int, out: str, rows_per_step: int
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--case", required=True,
-                    choices=("plain", "regrow", "ckpt_diverge", "engine"))
+                    choices=("plain", "regrow", "ckpt_diverge", "engine",
+                             "2d", "engine2d"))
     ap.add_argument("--init", required=True, help="host:port of the group")
     ap.add_argument("--world", type=int, required=True)
     ap.add_argument("--rank", type=int, required=True)
@@ -145,16 +197,22 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from havac_tpu_torch.parallel.multihost import (global_sequence_mesh,
-                                                    initialize)
+                                                    initialize,
+                                                    sequence_model_mesh)
 
     initialize(args.init, args.world, args.rank, backend=args.backend)
     try:
-        mesh = global_sequence_mesh(devices=[args.device] * args.shards)
+        devices = [args.device] * args.shards
+        mesh = (sequence_model_mesh(MODEL_PARALLEL, devices=devices)
+                if args.case in ("2d", "engine2d")
+                else global_sequence_mesh(devices=devices))
         before = ssv_cuda.LAUNCHES
         t0 = time.perf_counter()
         if args.case == "ckpt_diverge":
             result = _ckpt_diverge(mesh, args.device, args.rank, args.out,
                                    args.rows_per_step)
+        elif args.case == "engine2d":
+            result = _engine2d(mesh, args)
         elif args.case == "engine":
             engine = Havac(p_value=args.pvalue, device=args.device,
                            mesh=mesh, dist_rows_per_step=args.rows_per_step)

@@ -16,7 +16,8 @@ from havac_tpu_torch.ops import ssv_cuda
 from havac_tpu_torch.ops.ssv_torch import ssv_sweep_plain
 from havac_tpu_torch.parallel.multihost import (ShardMesh,
                                                 global_sequence_mesh,
-                                                initialize)
+                                                initialize,
+                                                sequence_model_mesh)
 from havac_tpu_torch.testing.generator import generate_planted_fixture
 from havac_tpu_torch.testing.percell import (dp_matrix_kernel, dp_matrix_rows,
                                              dp_matrix_torch)
@@ -157,7 +158,9 @@ def test_mesh_of_three_shards_on_the_card(dev, isolate):
     assert cuda.stats.overflow_retries > 0
 
 
-def test_mesh_sweep_orders_its_fills_before_its_launches(dev, monkeypatch):
+@pytest.mark.parametrize("d_model", [1, 2])
+def test_mesh_sweep_orders_its_fills_before_its_launches(dev, monkeypatch,
+                                                         d_model):
     """What the sweep fills on a device (the shards' zero row states among
     it) is ordered before its launches, and its streams start after the
     caller's queued work: with a long kernel queued right after the staging
@@ -166,34 +169,76 @@ def test_mesh_sweep_orders_its_fills_before_its_launches(dev, monkeypatch):
     state filled on another stream than the one that reads it would start
     from those values.) The sweep runs once on each of the pool's 32
     streams first, so that no allocation in the checked run reaches
-    ``cudaMalloc``, which would synchronise the device and hide a race."""
+    ``cudaMalloc``, which would synchronise the device and hide a race.
+    ``d_model`` 2 holds the 2-D sweep (3 x 2 shards, two models) to the
+    same."""
     from havac_tpu_torch.parallel.swar_dist import SwarDistributedSweep
+    from havac_tpu_torch.parallel.swar_dist2d import Swar2DSweep
 
     rng = np.random.default_rng(31)
     codes = rng.integers(0, 4, 30_011).astype(np.uint8)
     scores = rng.integers(-40, 90, (70, 4)).astype(np.int8)
-    cpu = SwarDistributedSweep(codes, ShardMesh(["cpu"] * 3),
-                               rows_per_step=17).run(scores)
-    sweep = SwarDistributedSweep(codes, ShardMesh([dev] * 3),
-                                 rows_per_step=17)
+    prefix = np.array([0, 40, 70])
+
+    def make(device):
+        n = 3 * d_model
+        if d_model == 1:
+            return (SwarDistributedSweep(codes, ShardMesh([device] * n),
+                                         rows_per_step=17), (scores,))
+        mesh = sequence_model_mesh(d_model, devices=[device] * n)
+        return Swar2DSweep(codes, mesh, rows_per_step=17), (scores, prefix)
+
+    cpu_sweep, args = make("cpu")
+    cpu = cpu_sweep.run(*args)
+    sweep, _ = make(dev)
     for _ in range(32):
-        sweep.run(scores)
+        sweep.run(*args)
     staged = SwarDistributedSweep._staged
 
-    def staged_then_busy(self, *args):
-        out = staged(self, *args)
+    def staged_then_busy(self, *a):
+        out = staged(self, *a)
         torch.cuda._sleep(500_000_000)  # ~0.25 s on the current stream
         return out
 
     monkeypatch.setattr(SwarDistributedSweep, "_staged", staged_then_busy)
     poison = [torch.full((sweep.shard_width,), 250, dtype=torch.int32,
-                         device=dev) for _ in range(3)]
+                         device=dev) for _ in range(3 * d_model)]
     del poison
     torch.cuda._sleep(500_000_000)
-    rows, pos = sweep.run(scores)
+    rows, pos = sweep.run(*args)
     assert cpu[0].size > 0
     np.testing.assert_array_equal(rows, cpu[0])
     np.testing.assert_array_equal(pos, cpu[1])
+
+
+def test_mesh2d_of_three_by_two_shards_on_the_card(dev):
+    """A (3, 2) sequence x model mesh on cuda:0 equals the single-device
+    isolated run on the card and the same mesh on the CPU; every active
+    (group, shard, step) is one launch."""
+    models, records = generate_planted_fixture(
+        seed=23, model_length=30, sequence_length=9000, num_models=4)
+    fasta = "".join(f">{n}\n{s}\n" for n, s in records)
+    runs = []
+    for device, mesh in ((dev, sequence_model_mesh(2, devices=[dev] * 6)),
+                         (dev, None),
+                         ("cpu", sequence_model_mesh(2, devices=["cpu"] * 6))):
+        before = ssv_cuda.LAUNCHES
+        e = Havac(p_value=0.05, device=device, mesh=mesh,
+                  dist_rows_per_step=17, dist_hit_capacity=5,
+                  isolate_models=True)
+        e.load_phmm(models).load_sequence(fasta, is_text=True).run()
+        runs.append((e, ssv_cuda.LAUNCHES - before))
+    (card, launched), (single, _), (cpu, _) = runs
+    assert len(card.hits()) > 0
+    for other in (single, cpu):
+        assert card.hits().as_tuples() == other.hits().as_tuples()
+        for x, y in zip(card.raw_hits(), other.raw_hits()):
+            np.testing.assert_array_equal(x, y)
+    geo = card.stats.chunk_geometry
+    assert geo["model_groups"] == 2 and geo["shards"] == 3
+    assert geo["launches"] == 3 * sum(geo["group_row_chunks"])
+    assert launched == geo["launches"] + card.stats.overflow_retries
+    assert card.stats.overflow_retries > 0
 
 
 def test_mesh_nccl_at_world_size_1(dev):

@@ -1,5 +1,6 @@
 """The port runs without JAX and without the JAX package: a CPU search, the
-same search on a 3-shard mesh, a multi-file scan, a per-cell dump and the
+same search on a 3-shard mesh and (isolated) on a 2 x 2 sequence x model
+mesh, the mesh dry run, a multi-file scan, a per-cell dump and the
 op-mix roofline in a fresh
 interpreter leave `jax` and `havac_tpu` out of sys.modules; and no module
 of the port, nor `chip_smoke.py`, names either in an import."""
@@ -32,6 +33,17 @@ mesh = Havac(p_value=0.05, device="cpu", mesh=ShardMesh(["cpu"] * 3),
              dist_rows_per_step=16)
 mesh.load_phmm(models).load_sequence(fasta, is_text=True).run()
 
+from havac_tpu_torch.parallel.dryrun import dryrun_multichip
+from havac_tpu_torch.parallel.multihost import sequence_model_mesh
+
+isolated = Havac(p_value=0.05, device="cpu", isolate_models=True)
+isolated.load_phmm(models).load_sequence(fasta, is_text=True).run()
+mesh2d = Havac(p_value=0.05, device="cpu", isolate_models=True,
+               mesh=sequence_model_mesh(2, devices=["cpu"] * 4),
+               dist_rows_per_step=16)
+mesh2d.load_phmm(models).load_sequence(fasta, is_text=True).run()
+dry = dryrun_multichip(4, "cpu")
+
 import os
 import numpy as np
 from havac_tpu_torch.testing.percell import dp_matrix_kernel
@@ -50,6 +62,9 @@ from havac_tpu_torch.tools import roofline
 mix = roofline.op_mix(roofline.make_inputs("perrow", 4, 10), 2, copies=2)
 print(json.dumps({"hits": len(engine.hits()), "scanned": scanned,
                   "mesh": mesh.hits().as_tuples() == engine.hits().as_tuples(),
+                  "mesh2d": (mesh2d.hits().as_tuples()
+                             == isolated.hits().as_tuples()),
+                  "dryrun": sorted(dry),
                   "cells": matrix.numel(), "roofline": list(mix.shape),
                   "jax": sorted(m for m in sys.modules
                                 if m == "jax" or m.startswith("jax.")),
@@ -70,6 +85,7 @@ def test_port_search_imports_no_jax(tmp_path):
     assert out["hits"] > 0
     assert out["scanned"] == [out["hits"]] * 2
     assert out["mesh"] is True
+    assert out["mesh2d"] is True and out["dryrun"] == ["1d", "2d"]
     assert out["cells"] == 9 * 300
     assert out["roofline"] == [2, 4, 128]
     assert out["jax"] == []

@@ -108,6 +108,27 @@ Phases (each prints its own lines; any failure exits non-zero):
              logs the single-process warning and writes no checkpoint; (d)
              the dry run, parallel.dryrun.dryrun_multichip(8, "cuda:0").
              Prints the phase's wall time.
+11. tools  — the measurement tools (havac_tpu_torch.tools), each through
+             its own entry point on the card: (a) runtime_table --synthetic
+             --composition uniform at 1,007 / 10,122 / 50,120 / 150,043
+             model positions against the 50,818,468-position chromosome,
+             and (b) --composition genomic at 10,122 and 150,043: every
+             row's hits equal the JAX engine's record
+             (benchmarks/runtime_table_r5*.json), 10,000 sampled raw hits
+             re-derive, the native core is active, launches = chunks +
+             regrows; (c) the file form: (a)'s 10,122 workload written as
+             .hmm / FASTA equals the record, hmm_db_by_length cuts a written
+             150,043-position collection at 1,000 / 10,000 / 50,000 (each
+             the shortest prefix), and runtime_table --hmm --fasta on the
+             10,000 cut equals the same models loaded as objects; (d)
+             scaling_mesh at 16,777,216 x 4,096, R = 1,024, D = 1, 2, 4, 8
+             on cuda:0: hits equal across D, steps = S + D - 1, launches =
+             S * D; (e) hostbench at 83,000 keys a chunk and at phase 4's
+             hits a launch; and an amino search (a planted card-20
+             collection of 4,000 positions against 6,000,000 residues):
+             the first 262,144 residues' hits equal the CPU engine's,
+             sampled hits re-derive, GCUPS beside phase 4's. Prints each
+             row with its regrows and host phases, and the phase's wall.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; the run fails if a kernel of the path did not launch. The
@@ -140,6 +161,7 @@ from havac_tpu_torch.engine import Havac, HavacRunState, cli
 from havac_tpu_torch.ops import ssv_cuda
 from havac_tpu_torch.ops.ssv_torch import MAX_POS, MAX_ROW, ssv_sweep_plain
 from havac_tpu_torch.parallel.dryrun import dryrun_multichip
+from havac_tpu_torch.scoring.reprojection import project_models
 from havac_tpu_torch.parallel.multihost import (ShardMesh,
                                                 global_sequence_mesh,
                                                 initialize,
@@ -148,9 +170,13 @@ from havac_tpu_torch.testing.multihost_worker import AbortAfterCheckpoint
 from havac_tpu_torch.testing.percell import (compare_matrices,
                                              dp_matrix_kernel, dp_matrix_rows,
                                              dp_matrix_torch)
+from havac_tpu_torch.io.hmm import read_hmm, write_hmm
+from havac_tpu_torch.testing.generator import generate_planted_fixture
 from havac_tpu_torch.testing.workload import (CHR22_LENGTH, write_fasta,
                                               write_workload)
-from havac_tpu_torch.tools import narrow_time, roofline, sass
+from havac_tpu_torch.tools import (hmm_db_by_length, hostbench, narrow_time,
+                                   roofline, runtime_table, sass,
+                                   scaling_mesh)
 
 SEED = 7
 MODEL_POSITIONS = 10020  # tools/runtime_table.py's 10k point
@@ -190,6 +216,20 @@ MESH_CUT = 8_000_000  # positions of the chromosome in (c) and (d)
 MESH_WORKERS = 2
 WORKER_TIMEOUT = 300
 MESH2D_GRIDS = ((2, 2), (4, 2))  # (D_seq, D_model) of phase 10 (a)
+# Phase 11: the JAX engine's hit counts on runtime_table's synthetic
+# workloads (p = 0.02, 50,818,468 positions), by model positions.
+RUNTIME_RECORDS = {"uniform": "benchmarks/runtime_table_r5.json",
+                   "genomic": "benchmarks/runtime_table_r5_genomic.json"}
+RUNTIME_LENGTHS = {"uniform": (1007, 10122, 50120, 150043),
+                   "genomic": (10122, 150043)}
+VERIFY_SAMPLE = 10_000
+FILE_POSITIONS = 10122  # (c): (a)'s workload at this size, written out
+DB_CUTS = (1000, 10000, 50000)  # hmm_db_by_length cuts of 150,043 positions
+SCALING_ARGS = ("--seq-len", "16777216", "--positions", "4096",
+                "--rows-per-step", "1024", "--devices", "1", "2", "4", "8")
+AMINO_MODELS, AMINO_LENGTH = 20, 200  # 4,000 model positions
+AMINO_RESIDUES = 6_000_000
+AMINO_PREFIX = 1 << 18  # residues the CPU engine (the plain route) sweeps
 RESOLVED = ("sequence_index", "sequence_position", "phmm_index",
             "phmm_position")
 
@@ -903,6 +943,230 @@ def phase_mesh2d(dev, smi, engine, work, cut, main_gcups) -> None:
     log(f"[mesh2d] phase 10 wall {time.perf_counter() - t_phase:.3f} s")
 
 
+def records(composition: str) -> dict:
+    """{model positions: num_hits} of the JAX engine's record."""
+    with open(os.path.join(ROOT, RUNTIME_RECORDS[composition])) as f:
+        rows = json.load(f)["rows"]
+    return {r["model_positions"]: r["num_hits"] for r in rows}
+
+
+def runtime_rows(tag, dev, work, argv) -> list:
+    """Run runtime_table's entry point on ``dev`` with sampled hits
+    re-derived; check every row's launches, verification and host core,
+    and return the rows."""
+    out = os.path.join(work, f"{tag}.json")
+    ssv_cuda.LAUNCHES = 0
+    rc = runtime_table.main([*argv, "--device", str(dev), "--verify-sample",
+                             str(VERIFY_SAMPLE), "--json", out])
+    launches = ssv_cuda.LAUNCHES
+    with open(out) as f:
+        rows = json.load(f)["rows"]
+    want = sum(r["chunk_geometry"]["n_col"] * r["chunk_geometry"]["n_row"]
+               + r["overflow_retries"] for r in rows)
+    if rc != 0 or launches != want or not want:
+        raise AssertionError(f"runtime_table {tag}: rc {rc}, LAUNCHES="
+                             f"{launches}, want {want}")
+    for r in rows:
+        v = r["verify"]
+        if not (v["verified"] == v["sampled"]
+                == min(VERIFY_SAMPLE, r["num_raw_hits"]) > 0):
+            raise AssertionError(f"runtime_table {tag}: verify {v}")
+        if r["native_active"] is not True:
+            raise AssertionError(f"runtime_table {tag}: no native core")
+    return rows
+
+
+def log_row(tag, r, smi, record=None) -> None:
+    held = "" if record is None else f" == the JAX record's {record}"
+    log(f"[tools] {tag} {r['model_positions']} positions: {r['num_hits']} "
+        f"hits{held} ({r['num_raw_hits']} raw); seconds {r['seconds']:.4f} "
+        f"(load {r['load_s']:.4f}, run {r['run_s']:.4f}, resolve "
+        f"{r['resolve_s']:.4f}), sweep {r['sweep_seconds']:.4f} s, "
+        f"gcups_sweep {r['gcups_sweep']:.2f}, gcups_e2e {r['gcups_e2e']:.2f};"
+        f" overflow_retries {r['overflow_retries']}, key_cap "
+        f"{r['chunk_geometry']['key_cap']}, chunks "
+        f"{r['chunk_geometry']['n_col']} x {r['chunk_geometry']['n_row']}; "
+        f"verified {r['verify']['verified']}/{r['verify']['sampled']} "
+        f"({r['verify']['seconds']:.3f} s); {smi}")
+    log(f"[tools] {tag} {r['model_positions']} phases "
+        f"{json.dumps({k: round(v, 4) for k, v in r['phases'].items()})}")
+
+
+def device_share(tag, dev, comp, r, smi) -> None:
+    """The row's device time, estimated from one launch at its first full
+    chunk (the workload's first column and row chunk, timed alone with CUDA
+    events) scaled by the row's cells, beside its sweep seconds."""
+    models, seq = runtime_table.synthetic_workload(
+        r["requested_positions"], CHR22_LENGTH, comp)
+    geo = r["chunk_geometry"]
+    sym = torch.from_numpy(seq[:geo["chunk_symbols"]]).to(dev)
+    sc = torch.from_numpy(project_models(models, P_VALUE)[
+        :geo["chunk_rows"]]).to(dev)
+    out = ssv_cuda.SweepBuffers.empty(sym.shape[0], sc.shape[0], 1 << 24, dev)
+    zs = torch.zeros(sym.shape[0], dtype=torch.int32, device=dev)
+    zc = torch.zeros(sc.shape[0] + 1, dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: ssv_cuda.launch(sym, sc, zs, zc, None, 0, 0, out),
+                 reps=5)
+    cells = sym.shape[0] * sc.shape[0]
+    busy = ms / 1e3 / cells * CHR22_LENGTH * r["model_positions"]
+    log(f"[tools] {tag} {r['model_positions']}: one launch of "
+        f"{sym.shape[0]} x {sc.shape[0]} ({int(out.count.item())} hits) "
+        f"{ms:.4f} ms ({cells / ms / 1e6:.2f} GCUPS); x the row's cells = "
+        f"{busy:.4f} s of device time (estimated), {busy / r['sweep_seconds']:.4f}"
+        f" of the sweep, {busy / r['seconds']:.4f} of the search; {smi}")
+
+
+def phase_tools(dev, smi, work, density, main_gcups) -> None:
+    t_phase = time.perf_counter()
+    # (a), (b) the reference's runtime curve, held to the JAX records.
+    for comp in ("uniform", "genomic"):
+        want = records(comp)
+        rows = runtime_rows(comp, dev, work, [
+            "--synthetic", "--composition", comp, "--lengths",
+            *map(str, RUNTIME_LENGTHS[comp])])
+        for r in rows:
+            if r["num_hits"] != want[r["model_positions"]]:
+                raise AssertionError(
+                    f"runtime_table {comp} {r['model_positions']}: "
+                    f"{r['num_hits']} hits, the JAX record "
+                    f"{want[r['model_positions']]}")
+            log_row(comp, r, smi, want[r["model_positions"]])
+        device_share(comp, dev, comp, rows[-1], smi)
+
+    # (c) the file form: (a)'s 10,122 workload written out, and a cut of a
+    # written 150,043-position collection.
+    models, seq = runtime_table.synthetic_workload(FILE_POSITIONS,
+                                                   CHR22_LENGTH)
+    hmm, fasta = (os.path.join(work, "workload.hmm"),
+                  os.path.join(work, "workload.fa"))
+    write_hmm(models, hmm)
+    write_fasta(fasta, "synth-chr", seq)
+    (r,) = runtime_rows("file", dev, work, ["--hmm", hmm, "--fasta", fasta])
+    want = records("uniform")[r["model_positions"]]
+    if r["model_positions"] != FILE_POSITIONS or r["num_hits"] != want:
+        raise AssertionError(f"file form: {r['num_hits']} hits at "
+                             f"{r['model_positions']} positions")
+    log_row("file (workload.hmm, workload.fa)", r, smi, want)
+    full, _ = runtime_table.synthetic_workload(150043, 1)
+    whole = os.path.join(work, "collection.hmm")
+    write_hmm(full, whole)
+    cuts = os.path.join(work, "cuts")
+    if hmm_db_by_length.main([whole, cuts, "--lengths",
+                              *map(str, DB_CUTS)]) != 0:
+        raise AssertionError("hmm_db_by_length failed")
+    ends = np.cumsum([m.model_length for m in full])
+    for size in DB_CUTS:
+        got = read_hmm(os.path.join(cuts, f"db_{size}.hmm"))
+        k = int(np.searchsorted(ends, size)) + 1  # the shortest prefix
+        if [m.name for m in got] != [m.name for m in full[:k]]:
+            raise AssertionError(f"db_{size}.hmm: {len(got)} models, want "
+                                 f"the first {k}")
+        log(f"[tools] db_{size}.hmm: the first {k} models, {int(ends[k - 1])}"
+            " positions")
+    cut = os.path.join(cuts, f"db_{DB_CUTS[1]}.hmm")
+    (r,) = runtime_rows("cut", dev, work, ["--hmm", cut, "--fasta", fasta])
+    ssv_cuda.LAUNCHES = 0
+    direct = Havac(p_value=P_VALUE, device=dev)
+    direct.load_phmm(full[:len(read_hmm(cut))]).load_sequence(fasta).run()
+    if (ssv_cuda.LAUNCHES != direct.stats.num_chunks
+            + direct.stats.overflow_retries
+            or r["num_hits"] != len(direct.hits())):
+        raise AssertionError(f"cut: {r['num_hits']} hits, the models as "
+                             f"objects {len(direct.hits())}")
+    log_row(f"cut db_{DB_CUTS[1]}.hmm x workload.fa", r, smi)
+    log(f"[tools] the cut's hits == the same models loaded as objects "
+        f"({len(direct.hits())})")
+    del direct, models, seq, full
+
+    # (d) the wavefront's step accounting on one card.
+    out = os.path.join(work, "scaling.json")
+    ssv_cuda.LAUNCHES = 0
+    if scaling_mesh.main([*SCALING_ARGS, "--device", str(dev), "--json",
+                          out]) != 0:
+        raise AssertionError("scaling_mesh failed")
+    launches = ssv_cuda.LAUNCHES
+    with open(out) as f:
+        mesh = json.load(f)
+    S = mesh["num_strips"]
+    want = 0
+    for row in mesh["rows"]:
+        D = row["devices"]
+        if (row["steps"] != S + D - 1 or row["launches"] != S * D
+                or row["kernel_launches"] != S * D + row["regrows"]):
+            raise AssertionError(f"scaling_mesh D={D}: {row}")
+        want += (1 + row["iters"]) * row["kernel_launches"]
+        log(f"[tools] scaling_mesh D={D}: steps {row['steps']} == S + D - 1 "
+            f"(S = {S}), launches {row['launches']} == S * D (kernel count "
+            f"{row['kernel_launches']}, regrows {row['regrows']}), "
+            f"{row['num_hits']} hits == D = 1's; wall min "
+            f"{row['wall_s']:.4f} s, median {row['wall_median_s']:.4f} s, "
+            f"ratio to D = 1 {row['measured_wall_ratio']:.4f} against T / S "
+            f"{row['predicted_fill_ratio']:.4f} ({mesh['note']}); {smi}")
+    if launches != want:
+        raise AssertionError(f"scaling_mesh: LAUNCHES={launches}, want "
+                             f"{want}")
+
+    # (e) the collector pool's work a chunk, at its default density and at
+    # phase 4's.
+    for argv in ([], ["--hits-per-chunk", str(density)]):
+        out = os.path.join(work, "hostbench.json")
+        if hostbench.main([*argv, "--json", out]) != 0:
+            raise AssertionError("hostbench failed")
+        with open(out) as f:
+            host = json.load(f)
+        log(f"[tools] hostbench {host['hits_per_chunk']} keys a chunk, "
+            f"{host['workers']} workers: " + ", ".join(
+                f"{k} {v['ms_per_chunk']:.4f} ms"
+                for k, v in host["variants"].items()) + f"; {smi}")
+
+    # The amino search: a planted card-20 collection through the engine on
+    # the card, against the CPU engine (the plain route) over a prefix.
+    t0 = time.perf_counter()
+    models, recs = generate_planted_fixture(
+        seed=SEED, model_length=AMINO_LENGTH, sequence_length=AMINO_RESIDUES,
+        num_models=AMINO_MODELS, alphabet="amino")
+    name, residues = recs[0]
+    fasta = os.path.join(work, "amino.fa")
+    prefix = os.path.join(work, "amino_prefix.fa")
+    for path, text in ((fasta, residues), (prefix, residues[:AMINO_PREFIX])):
+        with open(path, "w") as f:
+            f.write(f">{name}\n{text}\n")
+    log(f"[tools] amino fixture: {AMINO_MODELS} models x {AMINO_LENGTH} "
+        f"positions, {AMINO_RESIDUES} residues "
+        f"({time.perf_counter() - t0:.3f} s)")
+    ssv_cuda.LAUNCHES = 0
+    amino = Havac(p_value=P_VALUE, device=dev).load_phmm(models)
+    amino.load_sequence(fasta).run()
+    st = amino.stats
+    if (amino.alphabet != "amino" or not st.num_chunks
+            or ssv_cuda.LAUNCHES != st.num_chunks + st.overflow_retries):
+        raise AssertionError(f"amino: alphabet {amino.alphabet}, LAUNCHES="
+                             f"{ssv_cuda.LAUNCHES}, chunks {st.num_chunks}")
+    t0 = time.perf_counter()
+    plain = Havac(p_value=P_VALUE, device="cpu").load_phmm(models)
+    plain.load_sequence(prefix).run()
+    got, want = amino.hits(), plain.hits()
+    early = got.sequence_position < AMINO_PREFIX
+    if not (len(want) > 0 and all(np.array_equal(getattr(got, f)[early],
+                                                 getattr(want, f))
+                                  for f in RESOLVED)):
+        raise AssertionError(f"amino: {int(early.sum())} hits in the first "
+                             f"{AMINO_PREFIX} residues, the CPU engine "
+                             f"{len(want)}")
+    report = amino.verify(sample=min(VERIFY_SAMPLE, st.num_raw_hits))
+    if not report.all_verified:
+        raise AssertionError(f"amino: {report.num_hits - report.num_verified}"
+                             " sampled hits failed")
+    log(f"[tools] amino: {len(got)} hits, {st.num_chunks} launches "
+        f"(LAUNCHES={st.num_chunks + st.overflow_retries}); the first "
+        f"{AMINO_PREFIX} residues' {len(want)} hits == the CPU engine's "
+        f"({time.perf_counter() - t0:.3f} s); verified "
+        f"{report.num_verified}/{report.num_hits} sampled raw hits; sweep "
+        f"{st.sweep_seconds:.4f} s, {st.gcups:.2f} GCUPS (card 20) beside "
+        f"phase 4's {main_gcups:.2f} (card 4); {smi}")
+    log(f"[tools] phase 11 wall {time.perf_counter() - t_phase:.3f} s")
+
+
 def run_paths(dev, smi, work, max_err) -> dict:
     # ---- main path at the published 10k point
     t0 = time.perf_counter()
@@ -1032,6 +1296,7 @@ def run_paths(dev, smi, work, max_err) -> dict:
     phase_scan(dev, engine, hmm, work)
     cut = phase_mesh(dev, smi, engine, work, st.gcups)
     phase_mesh2d(dev, smi, engine, work, cut, st.gcups)
+    phase_tools(dev, smi, work, st.num_raw_hits // launches, st.gcups)
 
     return {"kernels": [
         {"name": "ssv_sweep", "route": "cuda", "source": SOURCE,

@@ -218,21 +218,25 @@ class KeyedLaunches:
         return keys
 
     def _resolve_chunk(self, keys: np.ndarray, r0: int = 0,
-                       lo: int = 0) -> ChunkHits:
-        """Collector-pool work item: sort the chunk's keys, then resolve
-        them to local coordinates (separator/padding hits dropped). Past
-        the key bounds the keys are chunk-local: (r0, lo) widens them."""
+                       lo: int = 0, *, nthreads: int = 1,
+                       presorted: bool = False) -> ChunkHits:
+        """Collector-pool work item: sort the chunk's keys in place, then
+        resolve them to local coordinates (separator/padding hits dropped)
+        on ``nthreads`` native threads. Past the key bounds the keys are
+        chunk-local: (r0, lo) widens them. ``presorted`` keys skip the sort
+        (`tools/hostbench.py` times the work item both ways)."""
         if not self.keyform:
             rows, pos = pairs_from_keys(keys)
             return self._resolve_pairs(rows + r0, pos + lo)
         t0 = time.perf_counter()
-        keys.sort()
+        if not presorted:
+            keys.sort()
         t1 = time.perf_counter()
         res = kept = None
         if self._database is not None and self._native is not None:
             starts, lengths, prefix = self._tables
             si, sp, mi, mp, kept = self._native.resolve_keys_native(
-                keys, starts, lengths, prefix, nthreads=1)
+                keys, starts, lengths, prefix, nthreads=nthreads)
             res = ResolvedHits(si, sp, mi, mp)
         elif self._database is not None:
             rows, pos = pairs_from_keys(keys)
@@ -261,6 +265,17 @@ class KeyedLaunches:
         with self._prof_lock:
             self.prof["sort"] += t1 - t0
             self.prof["resolve"] += t2 - t1
+
+
+def collector(database, phmm_prefix) -> KeyedLaunches:
+    """The collector pool's resolver outside a sweep: global keys over
+    ``database`` and ``phmm_prefix``, resolved by
+    :meth:`KeyedLaunches._resolve_chunk` as a sweep resolves them."""
+    c = KeyedLaunches()
+    c._init_keys(database, phmm_prefix, FIRST_KEY_CAP)
+    c.keyform = True
+    c.prof = dict.fromkeys(("sort", "resolve"), 0.0)
+    return c
 
 
 class PipelinedSweep(KeyedLaunches):

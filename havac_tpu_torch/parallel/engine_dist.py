@@ -25,7 +25,10 @@ from havac_tpu_torch.parallel.swar_dist import SwarDistributedSweep
 
 class DistributedSweep:
     """A mesh sweep called once per row chunk (``sweep_rows``), the shards'
-    row states chained on their devices from one call to the next."""
+    row states chained on their devices from one call to the next.
+    ``launches``, ``steps`` and ``regrows`` count the kernel launches
+    (regrows apart), wavefront steps and key-buffer regrows of every call
+    so far."""
 
     def __init__(self, codes: np.ndarray, mesh: ShardMesh, axis: str = "seq",
                  rows_per_step: int = 128, rows_per_call: int = 1024,
@@ -35,6 +38,7 @@ class DistributedSweep:
         self.hit_capacity = hit_capacity
         self._sweep = SwarDistributedSweep(codes, mesh, axis, self.R,
                                            key_cap=hit_capacity)
+        self.launches = self.steps = self.regrows = 0
         self.reset()
 
     def reset(self) -> None:
@@ -50,8 +54,26 @@ class DistributedSweep:
             raise ValueError("row chunk exceeds rows_per_call")
         _, parts = self._sweep.sweep(scores, init_state=self._state)
         self._state = self._sweep.final_state
+        self.launches += self._sweep.launches
+        self.steps += self._sweep.steps
+        self.regrows += self._sweep.regrows
         rows, pos = raw_pairs(parts, ordered=True)
         return rows + int(row_offset), pos
+
+    def sweep_all(self, scores: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """The whole collection in row chunks of ``rows_per_call`` from
+        the chain's start; exact global hits sorted by (row, position)."""
+        self.reset()
+        all_rows, all_pos = [], []
+        for r0 in range(0, scores.shape[0], self.rows_per_call):
+            rows, pos = self.sweep_rows(scores[r0:r0 + self.rows_per_call],
+                                        r0)
+            all_rows.append(rows)
+            all_pos.append(pos)
+        rows = np.concatenate(all_rows) if all_rows else np.empty(0, np.int64)
+        pos = np.concatenate(all_pos) if all_pos else np.empty(0, np.int64)
+        order = hit_sort_order(rows, pos)
+        return rows[order], pos[order]
 
 
 def ssv_distributed(symbols: np.ndarray, scores: np.ndarray, mesh: ShardMesh,
@@ -61,14 +83,5 @@ def ssv_distributed(symbols: np.ndarray, scores: np.ndarray, mesh: ShardMesh,
                     ) -> Tuple[np.ndarray, np.ndarray]:
     """One-shot: the whole collection in row chunks of ``rows_per_call``;
     exact global hits sorted by (row, position)."""
-    sweep = DistributedSweep(symbols, mesh, axis, rows_per_step,
-                             rows_per_call, hit_capacity)
-    all_rows, all_pos = [], []
-    for r0 in range(0, scores.shape[0], sweep.rows_per_call):
-        rows, pos = sweep.sweep_rows(scores[r0:r0 + sweep.rows_per_call], r0)
-        all_rows.append(rows)
-        all_pos.append(pos)
-    rows = np.concatenate(all_rows) if all_rows else np.empty(0, np.int64)
-    pos = np.concatenate(all_pos) if all_pos else np.empty(0, np.int64)
-    order = hit_sort_order(rows, pos)
-    return rows[order], pos[order]
+    return DistributedSweep(symbols, mesh, axis, rows_per_step,
+                            rows_per_call, hit_capacity).sweep_all(scores)

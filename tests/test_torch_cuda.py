@@ -7,6 +7,8 @@ is made inside the fixture, never at import). On the card:
 ``python -m pytest tests/test_torch_cuda.py -q``.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -21,7 +23,7 @@ from havac_tpu_torch.parallel.multihost import (ShardMesh,
 from havac_tpu_torch.testing.generator import generate_planted_fixture
 from havac_tpu_torch.testing.percell import (dp_matrix_kernel, dp_matrix_rows,
                                              dp_matrix_torch)
-from havac_tpu_torch.tools import roofline
+from havac_tpu_torch.tools import roofline, runtime_table, scaling_mesh
 
 pytestmark = pytest.mark.cuda
 
@@ -553,3 +555,35 @@ def test_add16x2_wraps_every_halfword_pair(dev):
         got = out.to(torch.int64) & 0xFFFFFFFF
         assert torch.equal(got, want), s0
         del lo, hi, a, b, a32, b32, out, got, want
+
+
+def test_runtime_table_on_the_card_equals_the_cpu(dev, monkeypatch):
+    """The tool's genomic rows on the card and on the CPU: the same hits;
+    the card's launches counted and sampled hits re-derived."""
+    made = []
+
+    class Recording(Havac):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(runtime_table, "Havac", Recording)
+    argv = ["--synthetic", "--lengths", "600", "--seq-len", "200000",
+            "--composition", "genomic"]
+    assert runtime_table.main([*argv, "--device", "cpu"]) == 0
+    before = ssv_cuda.LAUNCHES
+    assert runtime_table.main([*argv, "--verify-sample", "100"]) == 0
+    assert ssv_cuda.LAUNCHES > before
+    cpu, card = made
+    assert card.device.type == "cuda" and len(card.hits()) > 0
+    assert card.hits().as_tuples() == cpu.hits().as_tuples()
+
+
+def test_scaling_mesh_on_the_card_counts_kernel_launches(dev, tmp_path):
+    out = tmp_path / "mesh.json"
+    assert scaling_mesh.main(["--seq-len", "131072", "--positions", "512",
+                              "--rows-per-step", "128", "--devices", "1",
+                              "4", "--iters", "1", "--json", str(out)]) == 0
+    rows = json.loads(out.read_text())["rows"]
+    assert [r["kernel_launches"] - r["regrows"] for r in rows] == [4, 16]
+    assert [r["steps"] for r in rows] == [4, 7]

@@ -129,10 +129,31 @@ Phases (each prints its own lines; any failure exits non-zero):
              the first 262,144 residues' hits equal the CPU engine's,
              sampled hits re-derive, GCUPS beside phase 4's. Prints each
              row with its regrows and host phases, and the phase's wall.
+12. bench  — the benchmarks' entry points: (a) ``python -m
+             havac_tpu_torch.bench`` as a subprocess (the headline: the
+             sweep kernel at 8,515,584 x 4,080, 9 against 1 dispatches
+             chained through the row state, timed by CUDA events), its one
+             JSON line checked (keys, the card's name and power limit, the
+             59 launches it reports of its own); (b) at that shape one
+             dispatch and a 2-dispatch chain equal the plain version
+             exactly (keys, count, state, carry); (c)
+             ``havac_tpu_torch.tools.kbench`` through its main at card 4
+             for B = 2, 4, 8, 22 (W = 387,072), dense at B = 2, card 20 at
+             W = 196,608 and the unpacked draw, its launches counted from
+             0 just before and equal to 9 + 10 x iters a point, and each
+             point's last timed chain (9 dispatches, at the timed shape)
+             equal to the plain version chained the same way: every
+             dispatch's count, the last one's keys, state and carry; (d)
+             each point's GCUPS, kernel ms, bound, share, hits, key buffer
+             and geometry, and the phase's wall.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; the run fails if a kernel of the path did not launch. The
-line before the last is the kernels' JSON record, with each kernel's bound:
+line before the last is the kernels' JSON record (the sweep's launches are
+the main path's, phase 4's; phase 12's stand in fields of their own:
+``bench_launches``, kbench's, counted from 0 just before its runs, and
+``bench_process_launches_reported``, the bench subprocess's own count as
+it printed it), with each kernel's bound:
 the larger of its bytes over the card's memory rate and its operations over
 the card's peak rate for them: ``MIN_OPS`` instructions a word and row over
 the card's issue lanes, and its logic instructions over the INT32 lanes, at
@@ -157,6 +178,7 @@ from collections import Counter
 import numpy as np
 import torch
 
+from havac_tpu_torch import bench
 from havac_tpu_torch.engine import Havac, HavacRunState, cli
 from havac_tpu_torch.ops import ssv_cuda
 from havac_tpu_torch.ops.ssv_torch import MAX_POS, MAX_ROW, ssv_sweep_plain
@@ -174,9 +196,10 @@ from havac_tpu_torch.io.hmm import read_hmm, write_hmm
 from havac_tpu_torch.testing.generator import generate_planted_fixture
 from havac_tpu_torch.testing.workload import (CHR22_LENGTH, write_fasta,
                                               write_workload)
-from havac_tpu_torch.tools import (hmm_db_by_length, hostbench, narrow_time,
-                                   roofline, runtime_table, sass,
+from havac_tpu_torch.tools import (hmm_db_by_length, hostbench, kbench,
+                                   narrow_time, roofline, runtime_table, sass,
                                    scaling_mesh)
+from havac_tpu_torch.tools.roofline import HBM_BYTES_PER_S, bound
 
 SEED = 7
 MODEL_POSITIONS = 10020  # tools/runtime_table.py's 10k point
@@ -209,7 +232,6 @@ ROOFLINE_ROWS = 30
 ROOFLINE_LO, ROOFLINE_HI = 64, 4160
 MATCH_PRECOMPUTE = ("stripmatch", "mxumatch", "mxumatch8")
 STRIP_SMALL_WS = 12  # the largest WS whose K = 30 planes all fit a block
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 MESH_SHARDS = 4
 MESH_ROWS = (128, 1024)  # rows a step: the JAX engine's default, and larger
 MESH_CUT = 8_000_000  # positions of the chromosome in (c) and (d)
@@ -232,14 +254,14 @@ AMINO_RESIDUES = 6_000_000
 AMINO_PREFIX = 1 << 18  # residues the CPU engine (the plain route) sweeps
 RESOLVED = ("sequence_index", "sequence_position", "phmm_index",
             "phmm_position")
-
-
-def bound(nbytes: float, op_seconds: float) -> dict:
-    """The least time for the work: bytes over the memory rate or the
-    operations' time at the card's rate, whichever is larger."""
-    byte_s = nbytes / HBM_BYTES_PER_S
-    return {"bound_ms": max(byte_s, op_seconds) * 1e3,
-            "bound_by": "bytes" if byte_s >= op_seconds else "operations"}
+# Phase 12: the headline's keys and kbench's runs (each through its main).
+HEADLINE_KEYS = ("metric", "value", "unit", "vs_baseline", "gcups_median",
+                 "iters", "native_active", "device", "kernel_ms", "bound_ms",
+                 "bound_share", "hits", "L", "P", "torch", "cuda")
+KBENCH_RUNS = (["--sweep-blocks", "2", "4", "8", "22"],
+               ["--dense", "--blocks", "2"],
+               ["--card", "20", "--width", "196608"],
+               ["--kernel", "unpacked"])
 
 
 def log(msg: str) -> None:
@@ -270,11 +292,13 @@ def _np(x) -> np.ndarray:
 
 
 def compare(tag, got, want) -> int:
-    """Exact comparison of (keys, state, carry); returns the max abs error."""
-    gk, wk = np.sort(_np(got[0])), np.sort(_np(want[0]))
-    if gk.shape != wk.shape or not np.array_equal(gk, wk):
+    """Exact comparison of (keys, state, carry); returns the max abs error.
+    Keys are sorted where they lie (on the card for CUDA tensors)."""
+    gk = torch.sort(torch.as_tensor(got[0])).values
+    wk = torch.sort(torch.as_tensor(want[0]).to(gk.device)).values
+    if gk.shape != wk.shape or not torch.equal(gk, wk):
         raise AssertionError(f"{tag}: hit keys differ "
-                             f"({gk.size} vs {wk.size})")
+                             f"({gk.numel()} vs {wk.numel()})")
     err = 0
     for name, g, w in (("final_state", got[1], want[1]),
                        ("final_carry", got[2], want[2])):
@@ -1167,6 +1191,136 @@ def phase_tools(dev, smi, work, density, main_gcups) -> None:
     log(f"[tools] phase 11 wall {time.perf_counter() - t_phase:.3f} s")
 
 
+def phase_bench(dev, smi) -> dict:
+    """Phase 12; returns its sweep launches (kbench's, counted here from 0
+    just before, and the bench process's as it reported them) and its
+    largest difference from the plain version."""
+    t_phase = time.perf_counter()
+    # (a) the headline entry point, as a user runs it.
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "havac_tpu_torch.bench"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"bench rc={res.returncode}: "
+                             f"{res.stderr[-4000:]}")
+    lines = res.stdout.strip().splitlines()
+    head = json.loads(lines[-1])
+    L, P = bench.CARD_SHAPE
+    want_launches = kbench.N_HI + bench.ITERS * (kbench.N_LO + kbench.N_HI)
+    missing = [k for k in HEADLINE_KEYS if k not in head]
+    if (len(lines) != 1 or missing
+            or head["metric"] != "ssv_sweep_throughput"
+            or head["device"]["name"] != torch.cuda.get_device_name(0)
+            or head["device"]["nvidia_smi"] != smi.splitlines()[0]
+            or (head["L"], head["P"]) != (L, P)
+            or head["launches"] != want_launches
+            or head["value"] <= 0):
+        raise AssertionError(f"bench printed {res.stdout!r} (missing "
+                             f"{missing})")
+    log(f"[bench] headline {head['value']:.2f} GCUPS (median "
+        f"{head['gcups_median']:.2f}) at {L} x {P}, {head['vs_baseline']:.4f}"
+        f" of the U50 FPGA's published 1,739; one launch "
+        f"{head['kernel_ms']:.4f} ms against a bound of "
+        f"{head['bound_ms']:.4f} ms ({head['bound_by']}) = "
+        f"{head['bound_share']:.4f}; {head['hits']} hits, "
+        f"{head['threads']}-thread blocks, {head['launches']} launches, "
+        f"native_active={head['native_active']} "
+        f"({time.perf_counter() - t0:.3f} s); {smi}")
+    log(f"[bench] {lines[-1]}")
+
+    # (b) one dispatch and a 2-dispatch chain at the bench shape, exactly.
+    t0 = time.perf_counter()
+    sym, sc = (torch.from_numpy(a).to(dev) for a in bench.inputs(L, P))
+    chain = kbench.Chain(sym, sc, n_hi=2)
+    got = want = chain.state0
+    err = 0
+    plain_ms = []
+    for k in range(2):
+        got = chain.step(got, k)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        plain = ssv_sweep_plain(sym, sc, want, chain.carry0)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t1) * 1e3)
+        n = int(chain.counts[k])
+        err = max(err, compare(f"bench dispatch {k + 1}", (
+            chain.keys[:n], got, chain.outs[k].final_carry), plain))
+        if n != plain[0].numel():
+            raise AssertionError(f"bench dispatch {k + 1}: count {n} != "
+                                 f"{plain[0].numel()}")
+        want = plain[1]
+    log(f"[bench] one dispatch and a 2-dispatch chain at {L} x {P} == plain "
+        f"(keys, count, state, carry) exactly; plain "
+        f"{plain_ms[0]:.3f} / {plain_ms[1]:.3f} ms a dispatch "
+        f"({time.perf_counter() - t0:.3f} s); {smi}")
+    del sym, sc, chain, want, got, plain
+
+    # (c) kbench through its main, its launches counted from 0 just before;
+    # each point's last timed chain (9 dispatches) held, at the timed
+    # shape, to the plain version chained the same way.
+    held = []
+
+    def hold(chain) -> None:
+        t0 = time.perf_counter()
+        want, counts, ms = chain.state0, [], []
+        for _ in range(kbench.N_HI):
+            t1 = time.perf_counter()
+            keys, want, carry = ssv_sweep_plain(chain.symbols, chain.scores,
+                                                want, chain.carry0)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            counts.append(keys.numel())
+        tag = f"kbench point {len(held) + 1}"
+        if chain.counts.tolist() != counts or chain.expected != counts:
+            raise AssertionError(f"{tag}: counts {chain.counts.tolist()}, "
+                                 f"counting chain {chain.expected}, plain "
+                                 f"{counts}")
+        last = chain.outs[-1]
+        e = compare(tag, (chain.keys[:counts[-1]], last.final_state,
+                          last.final_carry), (keys, want, carry))
+        held.append({"err": e, "plain_ms": ms,
+                     "s": time.perf_counter() - t0})
+
+    ssv_cuda.LAUNCHES = 0
+    points = []
+    for i, argv in enumerate(KBENCH_RUNS):
+        path = os.path.join(ROOT, "build", f"kbench_smoke{i}.json")
+        if kbench.main(argv + ["--json", path], inspect=hold) != 0:
+            raise AssertionError(f"kbench {argv} failed")
+        with open(path) as f:
+            points += json.load(f)["points"]
+        os.remove(path)
+    launches = ssv_cuda.LAUNCHES
+    per_point = kbench.N_HI + kbench.parse_args([]).iters * (
+        kbench.N_LO + kbench.N_HI)
+    if (len(held) != len(points) or launches != per_point * len(points)
+            or launches != sum(p["launches"] for p in points)):
+        raise AssertionError(f"kbench LAUNCHES={launches}, not {per_point} "
+                             f"x {len(points)} points ({len(held)} held)")
+    for p, h in zip(points, held):
+        err = max(err, h["err"])
+        log(f"[bench] {p['kernel']} B={p['B']} W={p['W']} P={p['P']} "
+            f"card={p['card']}{' dense' if p['dense'] else ''}: its last "
+            f"timed chain of {kbench.N_HI} dispatches == plain chained the "
+            f"same way (counts {p['counts']}; last keys, state, carry), "
+            f"plain {min(h['plain_ms']):.3f}-{max(h['plain_ms']):.3f} ms a "
+            f"dispatch ({h['s']:.3f} s); {p['gcups']:.2f} GCUPS (median "
+            f"{p['gcups_median']:.2f}), kernel {p['kernel_ms']:.4f} ms "
+            f"against a bound of {p['bound_ms']:.4f} ms ({p['bound_by']}, "
+            f"MIN_OPS {p['min_ops']}) = {p['bound_share']:.4f} (with 8-byte"
+            f" keys {p['key_bound_ms']:.4f} ms = "
+            f"{p['key_bound_ms'] / p['kernel_ms']:.4f}); {p['hits']} hits, "
+            f"key buffer {p['key_cap']} ({p['regrows']} regrows), "
+            f"{p['threads']}-thread blocks, {p['launches']} launches; {smi}")
+    log(f"[bench] LAUNCHES={launches} over {len(points)} points, counted "
+        f"here from 0; the bench process reported {head['launches']} of "
+        f"its own; phase 12 wall {time.perf_counter() - t_phase:.3f} s")
+    return {"bench_launches": launches,
+            "bench_process_launches_reported": head["launches"],
+            "bench_max_abs_err": err}
+
+
 def run_paths(dev, smi, work, max_err) -> dict:
     # ---- main path at the published 10k point
     t0 = time.perf_counter()
@@ -1332,7 +1486,7 @@ def phase_roofline(dev, smi, card, main_gcups):
         x = roofline.make_inputs(name, top, k, dev)
         plain[name] = roofline.time_differential(
             lambda reps: roofline.op_mix_plain(name, x, reps), 1, 4, dev,
-            iters=3)[0]
+            iters=3).sec
         log(f"[roofline] {name}: plain {plain[name] * 1e3:.4f} ms/rep at "
             f"WS {top}")
 
@@ -1503,6 +1657,7 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     card = roofline.Card.query(dev)
     entries, current_gcups = phase_roofline(dev, smi, card, main_gcups)
+    record["kernels"][0].update(phase_bench(dev, smi))
     for entry in record["kernels"]:  # `current`'s ops, one word per 3 cells
         cells = entry.pop("cells")
         entry.update(bound(entry.pop("bytes"),

@@ -579,6 +579,20 @@ void launch_words(const Sweep& a, bool reset, cudaStream_t s) {
 
 }  // namespace
 
+// Threads a block of an undumped sweep of (P rows x L positions) on the
+// current device: wide blocks when they fill every SM four times over (their
+// residency), else narrow ones.
+extern "C" int hv_ssv_block_threads(long long L, int P, int* threads) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const long long ndiag = L + P - 1;
+  *threads = ndiag / (3 * kWide * kWords) >= 4LL * sms ? kWide : kNarrow;
+  return (int)cudaSuccess;
+}
+
 // `reset_rows` and `dump` may be null: no reset rows, no row dump. `dump`
 // is (P, L) uint8, row-major. Card 4 runs the bit-plane match and every
 // other card the table match; a non-null `dump` runs the same body in the
@@ -601,19 +615,15 @@ extern "C" int hv_ssv_sweep(const void* symbols, long long L, const void* scores
                 (int32_t*)final_state, (int32_t*)final_carry,
                 (unsigned long long*)keys, cap, (unsigned long long*)count,
                 (uint8_t*)dump - skew, skew};
-  const long long ndiag = L + P - 1;
   const bool reset = reset_rows != nullptr;
   if (dump != nullptr) {
     launch_words<kDumpT, kDumpW, true>(a, reset, s);
     return (int)cudaGetLastError();
   }
-  // Wide blocks when they fill every SM four times over (their residency).
-  int device = 0, sms = 0;
-  err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int threads = 0;
+  err = (cudaError_t)hv_ssv_block_threads(L, P, &threads);
   if (err != cudaSuccess) return (int)err;
-  if (ndiag / (3 * kWide * kWords) >= 4LL * sms)
+  if (threads == kWide)
     launch_words<kWide, kWords, false>(a, reset, s);
   else
     launch_words<kNarrow, kWords, false>(a, reset, s);

@@ -147,6 +147,7 @@ def load_library() -> ctypes.CDLL:
                     ("hv_ssv_sweep", i, [p, i64, p, i, i, p, p, p, i64, i64,
                                          p, p, p, u64, p, p, p]),
                     ("hv_error_string", ctypes.c_char_p, [i]),
+                    ("hv_ssv_block_threads", i, [i64, i, ctypes.POINTER(i)]),
                     ("hv_roofline_op_mix", i, [i, p, p, p, p, i, i, i, i, p,
                                                p]),
                     ("hv_roofline_add_chain", i, [i, p, i, i, i, i, p, p]),
@@ -273,6 +274,20 @@ def launch(symbols: torch.Tensor, scores: torch.Tensor,
     if rc != 0:
         raise RuntimeError(
             f"ssv_sweep kernel launch failed: {lib.hv_error_string(rc).decode()}")
+
+
+def block_threads(L: int, P: int, device) -> int:
+    """Threads a block of the kernel's launch of an undumped (P x L) sweep
+    on ``device`` (a CUDA device): 256 where those blocks fill every SM
+    four times over, else 64 (the kernel's own rule)."""
+    lib = load_library()
+    threads = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.hv_ssv_block_threads(L, P, ctypes.byref(threads))
+    if rc != 0:
+        raise RuntimeError(
+            f"ssv_sweep geometry query failed: {lib.hv_error_string(rc).decode()}")
+    return threads.value
 
 
 @dataclass

@@ -51,7 +51,7 @@ import subprocess
 import sys
 import time
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -136,6 +136,7 @@ MIN_OPS = {
 }
 INT32_LANES_PER_SM = 64  # INT32 pipe lanes per SM (Hopper)
 ISSUE_LANES_PER_SM = 128  # 4 schedulers x one 32-thread instruction a clock
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 
 
 def _check_name(name: str) -> None:
@@ -575,31 +576,69 @@ def fill_copies(name: str, ws: int, k: int, sms: int) -> int:
 
 def _seconds(fn: Callable[[], object], device: torch.device) -> float:
     if device.type == "cuda":
-        start, end = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3
+        with torch.cuda.device(device):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / 1e3
     t0 = time.perf_counter()
     fn()
     return time.perf_counter() - t0
 
 
+@dataclass(frozen=True)
+class Timing:
+    """Seconds of every timed run of ``lo`` reps and of ``hi`` reps."""
+
+    lo: int
+    hi: int
+    t_lo: List[float]
+    t_hi: List[float]
+
+    @property
+    def sec(self) -> float:
+        """Seconds a rep, ``(t(hi) - t(lo)) / (hi - lo)`` from the fastest
+        run of each count."""
+        return (min(self.t_hi) - min(self.t_lo)) / (self.hi - self.lo)
+
+    @property
+    def sec_median(self) -> float:
+        """Seconds a rep from the median run of each count."""
+        lo, hi = sorted(self.t_lo), sorted(self.t_hi)
+        return (hi[len(hi) // 2] - lo[len(lo) // 2]) / (self.hi - self.lo)
+
+
 def time_differential(run: Callable[[int], object], lo: int, hi: int,
-                      device: torch.device, iters: int = 5):
-    """Seconds per rep, ``(t(hi) - t(lo)) / (hi - lo)`` with the min of
-    ``iters`` timings at each rep count; returns (sec_per_rep, t_lo, t_hi).
-    On CUDA each timing is CUDA events around one call."""
+                      device: torch.device, iters: int = 5, *,
+                      warm: bool = True,
+                      check: Optional[Callable[[int], None]] = None
+                      ) -> Timing:
+    """Time ``iters`` runs of ``run(lo)``, then ``iters`` of ``run(hi)``,
+    so a run's fixed cost cancels in :attr:`Timing.sec`. On CUDA each run
+    lies between two CUDA events on the current stream and ends in one
+    synchronise; on the CPU a host clock times it. ``run(hi)`` warms (and
+    builds) first unless ``warm`` is false (the caller warmed up);
+    ``check(n)``, if given, runs after each timed run of ``n`` reps,
+    outside its timing."""
     if not 0 <= lo < hi:
         raise ValueError("need 0 <= lo < hi")
-    run(hi)  # warm (and build)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t_lo = min(_seconds(lambda: run(lo), device) for _ in range(iters))
-    t_hi = min(_seconds(lambda: run(hi), device) for _ in range(iters))
-    return (t_hi - t_lo) / (hi - lo), t_lo, t_hi
+    if warm:
+        run(hi)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def timed(n: int) -> float:
+        sec = _seconds(lambda: run(n), device)
+        if check is not None:
+            check(n)
+        return sec
+
+    t_lo = [timed(lo) for _ in range(iters)]
+    t_hi = [timed(hi) for _ in range(iters)]
+    return Timing(lo, hi, t_lo, t_hi)
 
 
 @dataclass(frozen=True)
@@ -631,7 +670,12 @@ class Card:
         variant at its lower-bound op counts and the maximum clock: (all
         ops over the schedulers' 128 lanes, logic ops over the INT32 pipe's
         64 lanes)."""
-        total, logic = MIN_OPS[name]
+        return self.count_seconds(*MIN_OPS[name], words)
+
+    def count_seconds(self, total: float, logic: float, words: float):
+        """The least seconds for ``words`` word-rows of ``total``
+        instructions each, ``logic`` of them logic ops, at the maximum
+        clock: (all over the issue lanes, logic over the INT32 lanes)."""
         clk = self.sms * self.max_sm_mhz * 1e6
         return (total * words / (ISSUE_LANES_PER_SM * clk),
                 logic * words / (INT32_LANES_PER_SM * clk))
@@ -643,6 +687,14 @@ class Card:
         return self.op_seconds(name, words_per_second)
 
 
+def bound(nbytes: float, op_seconds: float) -> dict:
+    """The least time for the work: bytes over the memory rate or the
+    operations' time at the card's rate, whichever is larger."""
+    byte_s = nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(byte_s, op_seconds) * 1e3,
+            "bound_by": "bytes" if byte_s >= op_seconds else "operations"}
+
+
 def run_variant(name: str, ws: int, k: int, lo: int, hi: int, iters: int,
                 device: torch.device, copies: int,
                 card: Optional[Card] = None) -> dict:
@@ -650,8 +702,9 @@ def run_variant(name: str, ws: int, k: int, lo: int, hi: int, iters: int,
     and checked against the card's issue rate, on the CPU through the plain
     version. Any failure raises."""
     x = make_inputs(name, ws, k, device)
-    sec, t_lo, t_hi = time_differential(
+    timing = time_differential(
         lambda reps: op_mix(x, reps, copies), lo, hi, device, iters)
+    sec, t_lo, t_hi = timing.sec, min(timing.t_lo), min(timing.t_hi)
     if sec <= 0:
         raise RuntimeError(f"{name}: t(hi) {t_hi} <= t(lo) {t_lo}")
     cells = cells_per_rep(name, ws, k)

@@ -23,7 +23,7 @@ from havac_tpu_torch.parallel.multihost import (ShardMesh,
 from havac_tpu_torch.testing.generator import generate_planted_fixture
 from havac_tpu_torch.testing.percell import (dp_matrix_kernel, dp_matrix_rows,
                                              dp_matrix_torch)
-from havac_tpu_torch.tools import roofline, runtime_table, scaling_mesh
+from havac_tpu_torch.tools import kbench, roofline, runtime_table, scaling_mesh
 
 pytestmark = pytest.mark.cuda
 
@@ -587,3 +587,40 @@ def test_scaling_mesh_on_the_card_counts_kernel_launches(dev, tmp_path):
     rows = json.loads(out.read_text())["rows"]
     assert [r["kernel_launches"] - r["regrows"] for r in rows] == [4, 16]
     assert [r["steps"] for r in rows] == [4, 7]
+
+
+@pytest.mark.parametrize("card,dense", [(4, False), (4, True), (20, True)])
+def test_bench_chain_matches_plain(dev, card, dense):
+    """kbench's chain on the card: each dispatch's keys and count, and the
+    chain's state and carry, equal the plain version chained the same way,
+    in the narrow and the wide geometry."""
+    for B, W in ((2, 3072), (1, 1_000_003)):
+        codes, scores = kbench.swar_inputs(B, 60, W, dense, card)
+        chain = kbench.Chain(torch.from_numpy(codes).to(dev),
+                             torch.from_numpy(scores).to(dev), n_hi=3)
+        before = ssv_cuda.LAUNCHES
+        chain.fit()
+        assert ssv_cuda.LAUNCHES == before + 3
+        want, st = chain.state0, chain.state0
+        for k in range(3):
+            st = chain.step(st, k)
+            torch.cuda.synchronize()
+            keys, want, carry = ssv_sweep_plain(chain.symbols, chain.scores,
+                                                want, chain.carry0)
+            n = int(chain.counts[k])
+            assert n == keys.numel() == chain.expected[k]
+            assert torch.equal(torch.sort(chain.keys[:n]).values, keys)
+            assert torch.equal(st, want)
+            assert torch.equal(chain.outs[k].final_carry, carry)
+
+
+def test_bench_dense_cap_equals_the_count(dev, monkeypatch):
+    monkeypatch.setattr(kbench, "FIRST_CAP", 64)
+    codes, scores = kbench.swar_inputs(1, 300, 40_000, dense=True)
+    p = kbench.bench_point(codes, scores, iters=2, device=dev)
+    assert p["regrows"] == 1 and p["key_cap"] == max(p["counts"]) > 64
+    assert p["launches"] == kbench.N_HI + 2 * (kbench.N_LO + kbench.N_HI)
+    assert p["hits"] == ssv_cuda.ssv_sweep(
+        torch.from_numpy(codes).to(dev), torch.from_numpy(scores).to(dev)
+    ).count
+    assert p["bound_ms"] > 0 and p["threads"] in (64, 256)

@@ -1,7 +1,7 @@
 """The port runs without JAX and without the JAX package: a CPU search, the
 same search on a 3-shard mesh and (isolated) on a 2 x 2 sequence x model
-mesh, the mesh dry run, a multi-file scan, a per-cell dump and the
-op-mix roofline in a fresh
+mesh, the mesh dry run, a multi-file scan, a per-cell dump, the op-mix
+roofline and a benchmark point (``bench`` / ``tools/kbench``) in a fresh
 interpreter leave `jax` and `havac_tpu` out of sys.modules; and no module
 of the port, nor `chip_smoke.py`, names either in an import."""
 
@@ -60,12 +60,17 @@ matrix = dp_matrix_kernel(rng.integers(0, 4, 300).astype(np.uint8),
 from havac_tpu_torch.tools import roofline
 
 mix = roofline.op_mix(roofline.make_inputs("perrow", 4, 10), 2, copies=2)
+from havac_tpu_torch import bench
+from havac_tpu_torch.tools import kbench
+
+point = kbench.bench_point(*bench.inputs(600, 30), iters=1, device="cpu")
 print(json.dumps({"hits": len(engine.hits()), "scanned": scanned,
                   "mesh": mesh.hits().as_tuples() == engine.hits().as_tuples(),
                   "mesh2d": (mesh2d.hits().as_tuples()
                              == isolated.hits().as_tuples()),
                   "dryrun": sorted(dry),
                   "cells": matrix.numel(), "roofline": list(mix.shape),
+                  "bench": point["cells"],
                   "jax": sorted(m for m in sys.modules
                                 if m == "jax" or m.startswith("jax.")),
                   "havac_tpu": sorted(m for m in sys.modules
@@ -88,6 +93,7 @@ def test_port_search_imports_no_jax(tmp_path):
     assert out["mesh2d"] is True and out["dryrun"] == ["1d", "2d"]
     assert out["cells"] == 9 * 300
     assert out["roofline"] == [2, 4, 128]
+    assert out["bench"] == 600 * 30
     assert out["jax"] == []
     assert out["havac_tpu"] == []
 

@@ -24,6 +24,7 @@ of its own), which requires ``isolate_models=True``.
 from __future__ import annotations
 
 import enum
+import itertools
 import logging
 import os
 import queue
@@ -48,6 +49,7 @@ from havac_tpu_torch.ops.common import round_up
 from havac_tpu_torch.scoring.reprojection import project_models
 from havac_tpu_torch.engine.pipeline import (FIRST_KEY_CAP, PipelinedSweep,
                                              raw_pairs)
+from havac_tpu_torch.engine.trace import span
 from havac_tpu_torch.parallel.multihost import all_gather_int
 from havac_tpu_torch.parallel.swar_dist import SwarDistributedSweep
 from havac_tpu_torch.parallel.swar_dist2d import Swar2DSweep
@@ -86,6 +88,12 @@ class RunStats:
     num_raw_hits: int = 0
     # Chunks whose hit count overflowed the key buffer and ran once more.
     overflow_retries: int = 0
+    # A request's host phases from the API layer down, in seconds:
+    # ``scan_files``' ``encode`` (the producer's parse and encode of the
+    # file), ``encode_wait`` and ``hits``; the sweep's ``stage``, the
+    # pipeline's (`engine/pipeline.py`) or the mesh's phases. Each is a
+    # span of `engine/trace.py`; ``sort`` and ``resolve`` are summed over
+    # the collector pool's threads.
     pipeline_prof: Optional[Dict[str, float]] = None
     num_unverified: int = 0  # populated when verify_hits=True
     # Whether the native host core resolved this run's hits (False: the
@@ -196,6 +204,8 @@ class Havac:
         self._chunks_total = 0
         self.stats = RunStats()
         self._warm_sweep: Optional[PipelinedSweep] = None
+        # Index of the latest run: every span of a run carries it.
+        self._request = -1
 
     # ------------------------------------------------------------------ load
 
@@ -317,7 +327,7 @@ class Havac:
         return PipelinedSweep(
             self._codes(), self.scores, self.chunk_symbols, self.chunk_rows,
             self.device, self.database, self.phmm_prefix,
-            reset_rows=self.reset_rows)
+            reset_rows=self.reset_rows, request=self._request)
 
     def scan_files(self, fasta_paths: Sequence[str], prefetch: int = 1
                    ) -> Iterator[Tuple[str, ResolvedHits]]:
@@ -330,12 +340,19 @@ class Havac:
         hit coordinates are local to the yielded file. A producer error is
         raised here, on the consumer side. Closing the generator early stops
         the producer: its queue puts give up once the consumer is gone.
-        Files are encoded in the loaded models' alphabet."""
+        Files are encoded in the loaded models' alphabet.
+
+        Each file's ``stats.pipeline_prof`` adds the API layer's phases:
+        ``encode`` (span ``havac.encode``, on the producer), ``encode_wait``
+        (the consumer's wait for the file, ``havac.encode_wait``) and
+        ``hits`` (``havac.hits``). File i is request ``r + i`` of the
+        spans, r the index of the scan's first run."""
         if self.scores is None:
             raise HavacUsageError("load_phmm must be called before scan_files")
         q: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))
         stop = threading.Event()
         end = object()
+        first = self._request + 1
 
         def put(item) -> bool:
             while not stop.is_set():
@@ -348,14 +365,17 @@ class Havac:
 
         def producer():
             try:
-                for path in fasta_paths:
+                for i, path in enumerate(fasta_paths):
                     if stop.is_set():
                         return
-                    db, n_forward = self._encode(path)
-                    if not put((path, db, n_forward)):
+                    prof = {"encode": 0.0}
+                    with span("havac.encode", prof, "encode",
+                              request=first + i):
+                        db, n_forward = self._encode(path)
+                    if not put((path, db, n_forward, prof)):
                         return
             except Exception as exc:  # raised on the consumer side
-                put((None, exc, 0))
+                put((None, exc, 0, None))
             finally:
                 put(end)
 
@@ -363,18 +383,26 @@ class Havac:
                                   name=SCAN_PRODUCER_THREAD)
         thread.start()
         try:
-            while True:
-                item = q.get()
+            for i in itertools.count():
+                wait = {"encode_wait": 0.0}
+                with span("havac.encode_wait", wait, "encode_wait",
+                          request=first + i):
+                    item = q.get()
                 if item is end:
                     break
-                path, db, n_forward = item
+                path, db, n_forward, prof = item
                 if path is None:
                     raise db
+                prof.update(wait, hits=0.0)
                 self.database = db
                 self._n_forward = n_forward
                 self._warm_sweep = None  # a warmed sweep staged other codes
                 self.run()
-                yield path, self.hits()
+                with span("havac.hits", prof, "hits", request=first + i):
+                    hits = self.hits()
+                self.stats.pipeline_prof.update(prof)
+                yield path, hits
+                del hits  # hold no answer through the next file's run
         finally:
             stop.set()
             while not q.empty():  # unblock a producer waiting on put()
@@ -418,6 +446,7 @@ class Havac:
         self._resolved = None
         self._chunks_done = 0
         self.stats = RunStats()
+        self._request += 1
         self._thread = threading.Thread(target=self._run_loop, daemon=True)
         self._thread.start()
         return self
@@ -546,6 +575,7 @@ class Havac:
             self._warm_sweep = None
             if sweep is None:
                 sweep = self._build_sweep()
+            sweep.request = self._request  # warmed before this run
             self._chunks_total = sweep.n_col * sweep.n_row
 
             def progress(done):
@@ -625,6 +655,7 @@ class Havac:
                                              self.mesh_axis, **keyed)
                 args = (self.scores, self.reset_rows)
                 hooks = self._mesh_checkpoint_hooks(sweep, P)
+            sweep.request = self._request
 
             def progress(step, total):
                 self._chunks_total = total
@@ -673,8 +704,6 @@ class Havac:
             self.stats.chunk_geometry.update(
                 model_groups=sweep.D_model, group_bounds=list(sweep.bounds),
                 group_row_chunks=row_chunks)
-        log.info("distributed phases (s): %s",
-                 {k: round(v, 3) for k, v in sweep.prof.items()})
         self._maybe_verify()
         with self._state_lock:
             self._state = HavacRunState.COMPLETED

@@ -77,21 +77,24 @@ def _build_engine(args):
 
 @contextlib.contextmanager
 def _maybe_trace(trace_dir, device):
-    """A torch.profiler trace of the block (CPU, and the card's kernels on
-    a CUDA device) written to ``trace_dir/trace.json``, or nothing."""
+    """A torch.profiler trace of the block (CPU on every thread, and the
+    card's kernels on a CUDA device) written to ``trace_dir/trace.json``
+    with the engine's spans and their arguments, or nothing."""
     if not trace_dir:
         yield
         return
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from havac_tpu_torch.engine import trace
 
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with trace.profiler(activities) as prof:
         yield
-    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    trace.export_chrome_trace(prof, os.path.join(trace_dir, "trace.json"))
 
 
 def _write_hits_tsv(engine, hits, out) -> None:

@@ -11,7 +11,9 @@ memory by asynchronous copies, and a collector pool sorts and resolves the
 keys (`havac_tpu_torch.native.resolve_keys_native`) while the device sweeps later
 chunks. The launches, pulls, regrows and resolution are
 :class:`KeyedLaunches`, which the mesh sweep
-(`havac_tpu_torch/parallel/swar_dist.py`) shares.
+(`havac_tpu_torch/parallel/swar_dist.py`) shares. Every host phase is a
+span (`engine/trace.py`): its seconds go to ``prof`` and, under a
+profiler, its name to the trace.
 
 The kernel emits its own hit keys and an exact count, so the JAX engine's
 dirty-tile drain, record compaction, pull batching and learned record caps
@@ -30,7 +32,6 @@ from __future__ import annotations
 
 import contextlib
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 
 from havac_tpu_torch import native
+from havac_tpu_torch.engine.trace import span
 from havac_tpu_torch.hits.decode import ResolvedHits, resolve_block_with_keys
 from havac_tpu_torch.ops.common import round_up
 from havac_tpu_torch.ops import ssv_cuda
@@ -96,6 +98,7 @@ class _Pending:
 
     r0: int  # the chunk's first global row and position: the keys are
     lo: int  # chunk-local past the key bounds
+    chunk: Tuple[int, int]  # (column chunk, row chunk), for the spans
     # (symbols, scores, reset_rows, init_state, init_carry): for a regrow
     inputs: tuple
     out: ssv_cuda.SweepBuffers
@@ -129,9 +132,15 @@ class KeyedLaunches:
     retained inputs with a buffer of exactly that size (later chunks get
     room for 1.25x the count); :meth:`_resolve_chunk` sorts the keys and
     resolves them, in a collector pool. The host's time goes to ``prof``'s
-    ``ready_wait``, ``fetch``, ``regrow``, ``sort`` and ``resolve``."""
+    ``dispatch`` (span ``havac.launch``), ``ready_wait`` and ``fetch``
+    (``havac.pull``), ``regrow`` (``havac.regrow``), ``sort`` and
+    ``resolve`` (``havac.sort``, ``havac.resolve``: thread-seconds summed
+    over the pool) and ``resolve_wait`` (``havac.resolve_wait``). Each span
+    carries ``request``, the engine's index of the run."""
 
-    def _init_keys(self, database, phmm_prefix, key_cap: int) -> None:
+    def _init_keys(self, database, phmm_prefix, key_cap: int,
+                   request: int = 0) -> None:
+        self.request = request
         self.key_cap = max(1, int(key_cap))
         self.regrows = 0
         self._database = database
@@ -161,23 +170,28 @@ class KeyedLaunches:
         return (torch.empty(cap, dtype=torch.int64, pin_memory=True),
                 torch.empty(1, dtype=torch.int64, pin_memory=True))
 
-    def _enqueue(self, inputs: tuple, r0: int, lo: int) -> _Pending:
+    def _enqueue(self, inputs: tuple, r0: int, lo: int,
+                 chunk: Tuple[int, int]) -> _Pending:
         """Launch one chunk: ``inputs`` = (symbols, scores, reset_rows,
         init_state, init_carry) on one device; (r0, lo) its first global
-        row and position."""
+        row and position; ``chunk`` its (column chunk, row chunk)."""
         dev = inputs[0].device
-        out = ssv_cuda.SweepBuffers.empty(inputs[0].shape[0],
-                                          inputs[1].shape[0], self.key_cap,
-                                          dev)
-        self._launch(inputs, r0, lo, out)
-        host_keys = host_count = event = None
-        if dev.type == "cuda":
-            host_keys, host_count = self._host_buffers(out.cap)
-            host_count.copy_(out.count, non_blocking=True)
-            host_keys.copy_(out.keys, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(dev))
-        return _Pending(r0, lo, inputs, out, host_keys, host_count, event)
+        L, P = inputs[0].shape[0], inputs[1].shape[0]
+        with span("havac.launch", self.prof, "dispatch",
+                  request=self.request, column_chunk=chunk[0],
+                  row_chunk=chunk[1], symbols=L, rows=P,
+                  key_cap=self.key_cap):
+            out = ssv_cuda.SweepBuffers.empty(L, P, self.key_cap, dev)
+            self._launch(inputs, r0, lo, out)
+            host_keys = host_count = event = None
+            if dev.type == "cuda":
+                host_keys, host_count = self._host_buffers(out.cap)
+                host_count.copy_(out.count, non_blocking=True)
+                host_keys.copy_(out.keys, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+        return _Pending(r0, lo, chunk, inputs, out, host_keys, host_count,
+                        event)
 
     def _launch(self, inputs: tuple, r0: int, lo: int,
                 out: ssv_cuda.SweepBuffers) -> None:
@@ -187,34 +201,35 @@ class KeyedLaunches:
         ssv_cuda.launch(sym, scores, istate, icarry, reset, r0, lo, out)
 
     def _pull(self, p: _Pending) -> np.ndarray:
-        """The chunk's keys on the host (unordered); regrows on overflow."""
-        t0 = time.perf_counter()
-        if p.event is not None:
-            p.event.synchronize()
-        t1 = time.perf_counter()
-        count = p.host_count if p.host_count is not None else p.out.count
-        n = int(count[0])
-        if n <= p.out.cap:
-            src = p.host_keys if p.host_keys is not None else p.out.keys
-            keys = src[:n].numpy().view(np.uint64).copy()
-            if p.host_keys is not None:
-                self._pinned.append((p.host_keys, p.host_count))
-            self.prof["ready_wait"] += t1 - t0
-            self.prof["fetch"] += time.perf_counter() - t1
-            return keys
+        """The chunk's keys on the host (unordered); regrows on overflow.
+        ``havac.pull`` waits for the chunk (``ready_wait``), then reads its
+        count and, unless the chunk regrows, its keys (``fetch``)."""
+        chunk = dict(request=self.request, column_chunk=p.chunk[0],
+                     row_chunk=p.chunk[1])
+        with span("havac.pull", self.prof, "fetch", **chunk) as s:
+            if p.event is not None:
+                p.event.synchronize()
+            s.split("ready_wait")
+            count = p.host_count if p.host_count is not None else p.out.count
+            n = int(count[0])
+            if n <= p.out.cap:
+                src = p.host_keys if p.host_keys is not None else p.out.keys
+                keys = src[:n].numpy().view(np.uint64).copy()
+                if p.host_keys is not None:
+                    self._pinned.append((p.host_keys, p.host_count))
+                return keys
         # The key buffer was too small: launch the chunk again with a buffer
         # of exactly the count, and size later chunks' buffers to fit.
-        self.regrows += 1
-        self.key_cap = max(self.key_cap, round_up(n + n // 4, 1 << 16))
-        sym, scores = p.inputs[:2]
-        out = ssv_cuda.SweepBuffers.empty(sym.shape[0], scores.shape[0], n,
-                                          sym.device)
-        self._launch(p.inputs, p.r0, p.lo, out)
-        keys = out.keys.cpu().numpy().view(np.uint64).copy()
-        if int(out.count.cpu()[0]) != n:
-            raise RuntimeError("hit count changed on relaunch")
-        self.prof["ready_wait"] += t1 - t0
-        self.prof["regrow"] += time.perf_counter() - t1
+        with span("havac.regrow", self.prof, "regrow", **chunk):
+            self.regrows += 1
+            self.key_cap = max(self.key_cap, round_up(n + n // 4, 1 << 16))
+            sym, scores = p.inputs[:2]
+            out = ssv_cuda.SweepBuffers.empty(sym.shape[0], scores.shape[0],
+                                              n, sym.device)
+            self._launch(p.inputs, p.r0, p.lo, out)
+            keys = out.keys.cpu().numpy().view(np.uint64).copy()
+            if int(out.count.cpu()[0]) != n:
+                raise RuntimeError("hit count changed on relaunch")
         return keys
 
     def _resolve_chunk(self, keys: np.ndarray, r0: int = 0,
@@ -228,43 +243,46 @@ class KeyedLaunches:
         if not self.keyform:
             rows, pos = pairs_from_keys(keys)
             return self._resolve_pairs(rows + r0, pos + lo)
-        t0 = time.perf_counter()
-        if not presorted:
-            keys.sort()
-        t1 = time.perf_counter()
+        with self._pool_span("havac.sort", "sort"):
+            if not presorted:
+                keys.sort()
         res = kept = None
-        if self._database is not None and self._native is not None:
-            starts, lengths, prefix = self._tables
-            si, sp, mi, mp, kept = self._native.resolve_keys_native(
-                keys, starts, lengths, prefix, nthreads=nthreads)
-            res = ResolvedHits(si, sp, mi, mp)
-        elif self._database is not None:
-            rows, pos = pairs_from_keys(keys)
-            res, kr, kp = resolve_block_with_keys(rows, pos, self._database,
-                                                  self._prefix)
-            kept = keys_from_pairs(kr, kp)
-        self._account(t0, t1)
+        with self._pool_span("havac.resolve", "resolve"):
+            if self._database is not None and self._native is not None:
+                starts, lengths, prefix = self._tables
+                si, sp, mi, mp, kept = self._native.resolve_keys_native(
+                    keys, starts, lengths, prefix, nthreads=nthreads)
+                res = ResolvedHits(si, sp, mi, mp)
+            elif self._database is not None:
+                rows, pos = pairs_from_keys(keys)
+                res, kr, kp = resolve_block_with_keys(
+                    rows, pos, self._database, self._prefix)
+                kept = keys_from_pairs(kr, kp)
         return ChunkHits(keys, res, kept)
 
     def _resolve_pairs(self, rows: np.ndarray, pos: np.ndarray) -> ChunkHits:
         """``_resolve_chunk`` past the key bounds: global int64 pairs."""
-        t0 = time.perf_counter()
-        order = np.lexsort((pos, rows))
-        rows, pos = rows[order], pos[order]
-        t1 = time.perf_counter()
+        with self._pool_span("havac.sort", "sort"):
+            order = np.lexsort((pos, rows))
+            rows, pos = rows[order], pos[order]
         res = kept = None
-        if self._database is not None:
-            res, kr, kp = resolve_block_with_keys(rows, pos, self._database,
-                                                  self._prefix)
-            kept = np.stack([kr, kp], axis=1)
-        self._account(t0, t1)
+        with self._pool_span("havac.resolve", "resolve"):
+            if self._database is not None:
+                res, kr, kp = resolve_block_with_keys(
+                    rows, pos, self._database, self._prefix)
+                kept = np.stack([kr, kp], axis=1)
         return ChunkHits(np.stack([rows, pos], axis=1), res, kept)
 
-    def _account(self, t0: float, t1: float) -> None:
-        t2 = time.perf_counter()
-        with self._prof_lock:
-            self.prof["sort"] += t1 - t0
-            self.prof["resolve"] += t2 - t1
+    def _pool_span(self, name: str, key: str) -> span:
+        """A collector-pool phase: the pool's threads share ``prof``."""
+        return span(name, self.prof, key, self._prof_lock,
+                    request=self.request)
+
+    def _wait_resolved(self, futures: List) -> List[ChunkHits]:
+        """The pool's results, in order (``havac.resolve_wait``)."""
+        with span("havac.resolve_wait", self.prof, "resolve_wait",
+                  request=self.request):
+            return [f.result() for f in futures]
 
 
 def collector(database, phmm_prefix) -> KeyedLaunches:
@@ -280,48 +298,52 @@ def collector(database, phmm_prefix) -> KeyedLaunches:
 
 class PipelinedSweep(KeyedLaunches):
     """Chunked (column x row) sweep over ``codes`` (L,) uint8 against
-    ``scores`` (P, card) int8 on ``device``."""
+    ``scores`` (P, card) int8 on ``device``, for the engine's run
+    ``request``. Staging the database and the score rows on the device is
+    ``prof``'s ``stage`` (span ``havac.stage``)."""
 
     def __init__(self, codes: np.ndarray, scores: np.ndarray,
                  chunk_symbols: int, chunk_rows: int, device,
                  database, phmm_prefix: np.ndarray,
                  reset_rows: Optional[np.ndarray] = None,
-                 key_cap: int = FIRST_KEY_CAP) -> None:
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            ssv_cuda.build()
-        self.L = int(codes.shape[0])
-        self.P, card = scores.shape
-        if self.L == 0 or self.P == 0:
-            raise ValueError("empty database or model collection")
-        if int(codes.max()) >= card:
-            raise ValueError(
-                f"symbol code {int(codes.max())} >= alphabet cardinality {card}")
-        self._init_keys(database, phmm_prefix, key_cap)
-        self.keyform = self._fits_keys(self.L, self.P)
-        self.chunk = max(1, min(int(chunk_symbols), (1 << 31) - 1))
-        self.n_col = -(-self.L // self.chunk)
-        self.n_row = -(-self.P // max(1, int(chunk_rows)))
-        self.rchunk = -(-self.P // self.n_row)
-        self.lookahead = LOOKAHEAD
-        self.prof: Dict[str, float] = {
-            "dispatch": 0.0, "gate_wait": 0.0, "ready_wait": 0.0,
-            "fetch": 0.0, "regrow": 0.0, "sort": 0.0, "resolve": 0.0,
-            "drain": 0.0, "tail": 0.0}
+                 key_cap: int = FIRST_KEY_CAP, request: int = 0) -> None:
+        self.prof: Dict[str, float] = dict.fromkeys(
+            ("stage", "dispatch", "gate_wait", "ready_wait", "fetch",
+             "regrow", "sort", "resolve", "drain", "resolve_wait", "tail",
+             "tail_merge", "tail_gather"), 0.0)
+        with span("havac.stage", self.prof, "stage", request=request):
+            self.device = torch.device(device)
+            if self.device.type == "cuda":
+                ssv_cuda.build()
+            self.L = int(codes.shape[0])
+            self.P, card = scores.shape
+            if self.L == 0 or self.P == 0:
+                raise ValueError("empty database or model collection")
+            if int(codes.max()) >= card:
+                raise ValueError(f"symbol code {int(codes.max())} >= "
+                                 f"alphabet cardinality {card}")
+            self._init_keys(database, phmm_prefix, key_cap, request)
+            self.keyform = self._fits_keys(self.L, self.P)
+            self.chunk = max(1, min(int(chunk_symbols), (1 << 31) - 1))
+            self.n_col = -(-self.L // self.chunk)
+            self.n_row = -(-self.P // max(1, int(chunk_rows)))
+            self.rchunk = -(-self.P // self.n_row)
+            self.lookahead = LOOKAHEAD
 
-        # Stage the database and the per-row-chunk score rows once.
-        self._codes_dev = torch.from_numpy(
-            np.ascontiguousarray(codes, dtype=np.uint8)).to(self.device)
-        self._scores_dev: List[torch.Tensor] = []
-        self._reset_dev: List[Optional[torch.Tensor]] = []
-        for ri in range(self.n_row):
-            r0, r1 = self.row_range(ri)
-            self._scores_dev.append(torch.from_numpy(np.ascontiguousarray(
-                scores[r0:r1], dtype=np.int8)).to(self.device))
-            self._reset_dev.append(None if reset_rows is None else
-                                   torch.from_numpy(np.ascontiguousarray(
-                                       reset_rows[r0:r1], dtype=np.int32)
-                                   ).to(self.device))
+            # Stage the database and the per-row-chunk score rows once.
+            self._codes_dev = torch.from_numpy(
+                np.ascontiguousarray(codes, dtype=np.uint8)).to(self.device)
+            self._scores_dev: List[torch.Tensor] = []
+            self._reset_dev: List[Optional[torch.Tensor]] = []
+            for ri in range(self.n_row):
+                r0, r1 = self.row_range(ri)
+                self._scores_dev.append(torch.from_numpy(
+                    np.ascontiguousarray(scores[r0:r1], dtype=np.int8)
+                ).to(self.device))
+                self._reset_dev.append(None if reset_rows is None else
+                                       torch.from_numpy(np.ascontiguousarray(
+                                           reset_rows[r0:r1], dtype=np.int32)
+                                       ).to(self.device))
 
     # ------------------------------------------------------------ geometry
 
@@ -352,13 +374,14 @@ class PipelinedSweep(KeyedLaunches):
                   if self.device.type == "cuda" else None)
         ctx = (torch.cuda.stream(stream) if stream is not None
                else contextlib.nullcontext())
-        t_start = time.perf_counter()
-        with ctx, ThreadPoolExecutor(max_workers=4) as pool:
+        wall = {"sweep": 0.0}
+        with span(None, wall, "sweep"), ctx, \
+                ThreadPoolExecutor(max_workers=4) as pool:
             out = self._run(pool, abort_event, progress, checkpoint_cb,
                             resume, stream)
         if out is None:
             return None
-        return out[0], out[1], time.perf_counter() - t_start
+        return out[0], out[1], wall["sweep"]
 
     def _run(self, pool, abort_event, progress, checkpoint_cb, resume,
              stream):
@@ -403,16 +426,13 @@ class PipelinedSweep(KeyedLaunches):
                 if icarry is None:
                     icarry = torch.zeros(r1 - r0 + 1, dtype=torch.int32,
                                          device=dev)
-                t0 = time.perf_counter()
                 p = self._enqueue((self._codes_dev[lo:hi],
                                    self._scores_dev[ri], self._reset_dev[ri],
-                                   istate, icarry), r0, lo)
+                                   istate, icarry), r0, lo, (ci, ri))
                 pend.append(p)
-                t1 = time.perf_counter()
-                self.prof["dispatch"] += t1 - t0
-                while len(pend) >= self.lookahead:
-                    drain_one()
-                self.prof["gate_wait"] += time.perf_counter() - t1
+                with span(None, self.prof, "gate_wait"):
+                    while len(pend) >= self.lookahead:
+                        drain_one()
                 istate = p.out.final_state  # chain row state down the column
                 col_carry[ri] = p.out.final_carry  # and the carry across
                 done += 1
@@ -422,42 +442,48 @@ class PipelinedSweep(KeyedLaunches):
             if checkpoint_cb is not None and ci + 1 < self.n_col:
                 while pend:
                     drain_one()
-                results += [f.result() for f in futures]
+                results += self._wait_resolved(futures)
                 futures.clear()
                 carries = np.zeros((self.n_row, self.rchunk + 1), np.int32)
                 for ri, c in prev_carry.items():
                     carries[ri, :c.shape[0]] = c.cpu().numpy()
                 rows_s, pos_s = raw_pairs([r.keys for r in results])
                 checkpoint_cb(ci + 1, carries, rows_s, pos_s)
-        t_drain = time.perf_counter()
-        while pend:
-            drain_one()
-        results += [f.result() for f in futures]
-        self.prof["drain"] += time.perf_counter() - t_drain
-        t_tail = time.perf_counter()
+        with span(None, self.prof, "drain"):
+            while pend:
+                drain_one()
+            results += self._wait_resolved(futures)
         resolved = (None if self._database is None
-                    else _merge_resolved(results))
-        self.prof["tail"] += time.perf_counter() - t_tail
+                    else _merge_resolved(results, self.prof, self.request))
         return resolved, [r.keys for r in results]
 
 
-def _merge_resolved(results: List[ChunkHits]) -> ResolvedHits:
+def _merge_resolved(results: List[ChunkHits], prof: Dict[str, float],
+                    request: int) -> ResolvedHits:
     """One table ordered by raw (row, position) key from per-chunk tables
-    that are each ordered already: a k-way merge of sorted runs."""
-    parts = [r for r in results if r.kept_keys.size]
-    if not parts:
-        return ResolvedHits(*(np.empty(0, dtype=np.int64),) * 4)
-    keys = np.concatenate([r.kept_keys for r in parts])
-    order = None
-    if len(parts) > 1 and keys.ndim == 2:  # (row, position) pairs
-        order = np.lexsort((keys[:, 1], keys[:, 0]))
-    elif len(parts) > 1:
-        offs = np.cumsum([0] + [r.kept_keys.size for r in parts])
-        order = native.merge_runs_u64_native(keys, offs, nthreads=8)
-        if order is None:
-            order = np.argsort(keys, kind="stable")
-    cols = []
-    for f in _RESOLVED_FIELDS:
-        col = np.concatenate([getattr(r.resolved, f) for r in parts])
-        cols.append(col if order is None else col[order])
-    return ResolvedHits(*cols)
+    that are each ordered already: a k-way merge of sorted runs. The whole
+    is ``prof``'s ``tail``: the merge order (``havac.tail.merge``,
+    ``tail_merge``), then the columns' concatenation and gather
+    (``havac.tail.gather``, ``tail_gather``)."""
+    with span(None, prof, "tail"):
+        parts = [r for r in results if r.kept_keys.size]
+        if not parts:
+            return ResolvedHits(*(np.empty(0, dtype=np.int64),) * 4)
+        with span("havac.tail.merge", prof, "tail_merge", request=request):
+            keys = np.concatenate([r.kept_keys for r in parts])
+            order = None
+            if len(parts) > 1 and keys.ndim == 2:  # (row, position) pairs
+                order = np.lexsort((keys[:, 1], keys[:, 0]))
+            elif len(parts) > 1:
+                offs = np.cumsum([0] + [r.kept_keys.size for r in parts])
+                order = native.merge_runs_u64_native(keys, offs, nthreads=8)
+                if order is None:
+                    order = np.argsort(keys, kind="stable")
+        with span("havac.tail.gather", prof, "tail_gather",
+                  request=request):
+            cols = []
+            for f in _RESOLVED_FIELDS:
+                col = np.concatenate([getattr(r.resolved, f) for r in parts])
+                cols.append(col if order is None else col[order])
+            del keys, order
+        return ResolvedHits(*cols)

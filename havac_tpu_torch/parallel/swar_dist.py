@@ -29,7 +29,6 @@ hits.
 from __future__ import annotations
 
 import contextlib
-import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -41,6 +40,7 @@ from havac_tpu_torch.engine.pipeline import (FIRST_KEY_CAP, LOOKAHEAD,
                                              ChunkHits, KeyedLaunches,
                                              _merge_resolved, _POS_MASK,
                                              keys_from_pairs, raw_pairs)
+from havac_tpu_torch.engine.trace import span
 from havac_tpu_torch.hits.decode import ResolvedHits
 from havac_tpu_torch.ops import ssv_cuda
 from havac_tpu_torch.parallel.multihost import (ShardMesh, all_reduce_max,
@@ -74,11 +74,14 @@ class SwarDistributedSweep(KeyedLaunches):
 
     ``database`` and ``phmm_prefix``, when given, resolve the hits as the
     engine needs them (:meth:`sweep`); :meth:`run` returns raw global
-    (rows, positions) either way. ``prof`` charges the host's time to
-    ``dispatch`` (enqueueing steps, the exchange apart), ``sync`` (the
-    processes' agreement on abort), ``seam`` (the exchange's host copies
-    and waits) and, as on the main path, ``ready_wait`` (waiting on the
-    device), ``fetch``, ``regrow``, ``sort`` and ``resolve``. After a run,
+    (rows, positions) either way. ``prof`` charges the host's time, span
+    by span (`engine/trace.py`), to ``sync`` (``havac.sync``: the
+    processes' agreement on abort), ``seam`` (``havac.seam``: the
+    exchange's host copies and waits) and, as on the main path,
+    ``dispatch`` (``havac.launch``, one a shard and step), ``ready_wait``
+    (waiting on the device), ``fetch``, ``regrow``, ``sort``, ``resolve``,
+    ``resolve_wait`` and ``tail`` (``tail_merge`` and ``tail_gather``).
+    ``request`` is the engine's index of the run. After a run,
     ``launches``, ``steps`` and ``regrows`` count it, ``groups`` holds each
     model group's (first row, rows, row chunks S) and ``T`` the steps of
     the whole wavefront."""
@@ -114,7 +117,8 @@ class SwarDistributedSweep(KeyedLaunches):
         self.lookahead = LOOKAHEAD
         self.prof: Dict[str, float] = dict.fromkeys(
             ("dispatch", "sync", "ready_wait", "fetch", "regrow", "sort",
-             "resolve", "seam"), 0.0)
+             "resolve", "seam", "resolve_wait", "tail", "tail_merge",
+             "tail_gather"), 0.0)
         self.launches = 0
         self.steps = 0
         self.groups: List[Tuple[int, int, int]] = []
@@ -162,10 +166,8 @@ class SwarDistributedSweep(KeyedLaunches):
     def _aborted(self, abort_event) -> bool:
         """Whether any process was asked to stop (one all-reduce a step)."""
         flag = abort_event is not None and abort_event.is_set()
-        t0 = time.perf_counter()
-        agreed = bool(all_reduce_max(self.mesh, int(flag)))
-        self.prof["sync"] += time.perf_counter() - t0
-        return agreed
+        with span("havac.sync", self.prof, "sync", request=self.request):
+            return bool(all_reduce_max(self.mesh, int(flag)))
 
     def _resolve_shard(self, keys: np.ndarray, r0: int, lo: int) -> ChunkHits:
         """``_resolve_chunk`` with the shard padding past the database's
@@ -273,7 +275,8 @@ class SwarDistributedSweep(KeyedLaunches):
                 ctx.enter_context(torch.cuda.stream(stream))
             fronts = []
             for m, ((r0, _), sched) in enumerate(zip(bounds, schedules)):
-                ex = SeamExchange(self.mesh, sched, self.prof, m)
+                ex = SeamExchange(self.mesh, sched, self.prof, m,
+                                  self.request)
                 devs = [self.mesh.device(k, m) for k in ex.shards]
                 state = (list(init_state) if init_state is not None else
                          [torch.zeros(W, dtype=torch.int32, device=d)
@@ -290,10 +293,8 @@ class SwarDistributedSweep(KeyedLaunches):
                                       ckpt_every, streams)
         if results is None:
             return None
-        t0 = time.perf_counter()
         resolved = (None if self._database is None
-                    else _merge_resolved(results))
-        self.prof["sort"] += time.perf_counter() - t0
+                    else _merge_resolved(results, self.prof, self.request))
         return fronts, (resolved, [r.keys for r in results])
 
     def _run_steps(self, pool, fronts: List[_Front], start_t: int, resumed,
@@ -320,7 +321,6 @@ class SwarDistributedSweep(KeyedLaunches):
                 for f in futures:
                     f.result()
                 return None
-            t0, seam0 = time.perf_counter(), self.prof["seam"]
 
             def launch(j: int, k: int, s: int, seam: torch.Tensor
                        ) -> torch.Tensor:
@@ -330,24 +330,23 @@ class SwarDistributedSweep(KeyedLaunches):
                 sc, rr = f.staged[dev][s]
                 p = self._enqueue((self._codes_dev[k, dev], sc, rr,
                                    f.state[i], seam),
-                                  f.row0 + f.schedule.rows(s)[0], k * W)
+                                  f.row0 + f.schedule.rows(s)[0], k * W,
+                                  (k, s))
                 f.state[i] = p.out.final_state
                 pend.append((t, p))
                 return p.out.final_carry
 
             self.launches += wavefront_step(t, exchanges, launch)
             self.steps += 1
-            self.prof["dispatch"] += (time.perf_counter() - t0
-                                      - (self.prof["seam"] - seam0))
             drain(t + 1 - self.lookahead)
             if progress is not None:
                 progress(t + 1, T)
             if (checkpoint_cb is not None and t + 1 < T
                     and (t + 1 - start_t) % ckpt_every == 0):
                 drain(T)
-                results += [f.result() for f in futures]
+                results += self._wait_resolved(futures)
                 futures.clear()
                 rows, pos = raw_pairs([r.keys for r in results])
                 checkpoint_cb(t + 1, *self._snapshot(fronts), rows, pos)
         drain(T)
-        return results + [f.result() for f in futures]
+        return results + self._wait_resolved(futures)

@@ -38,7 +38,6 @@ receives, so no process waits on one that waits on it.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -46,6 +45,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from havac_tpu_torch.engine.trace import span
 from havac_tpu_torch.parallel.multihost import ShardMesh
 
 
@@ -80,10 +80,12 @@ class Schedule:
 class SeamExchange:
     """The seams of one process's shards of model group ``model``: for each
     of its seq shards, the (rows+1) int32 carry it takes at its next
-    launch."""
+    launch. The host copies and waits of the exchange are ``prof``'s
+    ``seam`` (span ``havac.seam`` of run ``request``)."""
 
     def __init__(self, mesh: ShardMesh, schedule: Schedule,
-                 prof: Dict[str, float], model: int = 0) -> None:
+                 prof: Dict[str, float], model: int = 0,
+                 request: int = 0) -> None:
         self.mesh = mesh
         self.schedule = schedule
         self.model = model
@@ -91,6 +93,7 @@ class SeamExchange:
         self.first = self.shards.start
         self.last = self.shards.stop - 1
         self.prof = prof
+        self.request = request
         self._host = mesh.backend == "gloo"
         self.inbox: Dict[int, torch.Tensor] = {}
         self._recv: Optional[Tuple[int, torch.Tensor, object]] = None
@@ -142,9 +145,8 @@ class SeamExchange:
             self.inbox[k + 1] = carry  # held until k+1's launch is enqueued
             return
         if self._host:
-            t0 = time.perf_counter()
-            carry = carry.cpu()
-            self.prof["seam"] += time.perf_counter() - t0
+            with self._span():
+                carry = carry.cpu()
         self._sends.append((dist.isend(carry, dst=self._peer(k + 1),
                                        group=self.mesh.group,
                                        tag=self._tag(t)), carry))
@@ -152,16 +154,18 @@ class SeamExchange:
     def finish(self) -> None:
         """End of a step: wait for its send and its receive; the received
         seam waits in the inbox for the first shard's next launch."""
-        t0 = time.perf_counter()
-        for work, _ in self._sends:
-            work.wait()
-        self._sends.clear()
-        if self._recv is not None:
-            k, buf, work = self._recv
-            self._recv = None
-            work.wait()
-            self.inbox[k] = buf.to(self._device(k)) if self._host else buf
-        self.prof["seam"] += time.perf_counter() - t0
+        with self._span():
+            for work, _ in self._sends:
+                work.wait()
+            self._sends.clear()
+            if self._recv is not None:
+                k, buf, work = self._recv
+                self._recv = None
+                work.wait()
+                self.inbox[k] = buf.to(self._device(k)) if self._host else buf
+
+    def _span(self) -> span:
+        return span("havac.seam", self.prof, "seam", request=self.request)
 
     def state(self) -> np.ndarray:
         """The inbox as (shards, R+1) int32, zero-padded: the seams the

@@ -204,7 +204,10 @@ def test_cli_benchmark_matches_jax(capsys, dna, tmp_path):
     assert set(p) == set(j) | {"verified_hits", "unverified_hits"}
     assert set(p["phase_seconds"]) == set(j["phase_seconds"])
     assert p["unverified_hits"] == 0
-    assert (trace / "trace.json").stat().st_size > 0
+    with open(trace / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    launches = [e for e in events if e.get("name") == "havac.launch"]
+    assert [e["args"]["column_chunk"] for e in launches] == [0]
 
 
 @pytest.mark.parametrize("strand", ["forward", "both"])

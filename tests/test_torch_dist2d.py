@@ -354,7 +354,7 @@ def test_engine_2d_matches_the_jax_engine(engine_case, strand):
     assert ours.progress == 1.0
     assert set(ours.stats.pipeline_prof) == {
         "dispatch", "sync", "ready_wait", "fetch", "regrow", "sort", "resolve",
-        "seam"}
+        "seam", "resolve_wait", "tail", "tail_merge", "tail_gather"}
 
 
 def test_engine_2d_refuses_a_run_without_isolation(engine_case):

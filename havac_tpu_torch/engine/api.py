@@ -93,7 +93,8 @@ class RunStats:
     # file), ``encode_wait`` and ``hits``; the sweep's ``stage``, the
     # pipeline's (`engine/pipeline.py`) or the mesh's phases. Each is a
     # span of `engine/trace.py`; ``sort`` and ``resolve`` are summed over
-    # the collector pool's threads.
+    # the collector pool's threads. ``tail_segments``, a count, is the
+    # number of segments the tail placed.
     pipeline_prof: Optional[Dict[str, float]] = None
     num_unverified: int = 0  # populated when verify_hits=True
     # Whether the native host core resolved this run's hits (False: the

@@ -15,6 +15,14 @@ chunks. The launches, pulls, regrows and resolution are
 span (`engine/trace.py`): its seconds go to ``prof`` and, under a
 profiler, its name to the trace.
 
+After the last chunk, the tail (:func:`_merge_resolved`) joins the
+per-chunk tables into one ordered by (row, position). Each launch's hits
+lie in the (row, position) rectangle it swept, so where the rectangles
+are disjoint the order follows from the geometry: every (chunk, row)
+segment is placed by its count and copied there in one threaded native
+pass. Hits without such rectangles (a resumed mesh sweep, pairs past the
+key bounds) take a comparison merge.
+
 The kernel emits its own hit keys and an exact count, so the JAX engine's
 dirty-tile drain, record compaction, pull batching and learned record caps
 have no counterpart here: a chunk whose count exceeds the key buffer is
@@ -106,6 +114,13 @@ class _Pending:
     host_count: Optional[torch.Tensor]
     event: Optional["torch.cuda.Event"]
 
+    @property
+    def rect(self) -> Tuple[int, int, int, int]:
+        """The global rows [r0, r1) and positions [lo, hi) swept."""
+        sym, scores = self.inputs[:2]
+        return (self.r0, self.r0 + scores.shape[0], self.lo,
+                self.lo + sym.shape[0])
+
 
 @dataclass
 class ChunkHits:
@@ -113,11 +128,19 @@ class ChunkHits:
     table of the kept ones (separator/padding hits dropped). Hits are
     global uint64 keys, or (n, 2) int64 (row, position) pairs past the key
     bounds. A sweep with no database resolves nothing (``resolved`` and
-    ``kept_keys`` None)."""
+    ``kept_keys`` None).
+
+    ``rect`` is the rectangle of global rows [r0, r1) and positions [lo,
+    hi) that holds every hit, the launch's; ``row_offs`` (r1 - r0 + 1,)
+    bounds each of its rows in ``kept_keys``. Both are None where the hits
+    fill no rectangle (a resumed mesh sweep's staircase of steps) or are
+    pairs; the tail then merges by comparison."""
 
     keys: np.ndarray  # sorted by (row, position)
     resolved: Optional[ResolvedHits]
     kept_keys: Optional[np.ndarray]  # sorted by (row, position)
+    rect: Optional[Tuple[int, int, int, int]] = None
+    row_offs: Optional[np.ndarray] = None
 
 
 class KeyedLaunches:
@@ -232,21 +255,25 @@ class KeyedLaunches:
                 raise RuntimeError("hit count changed on relaunch")
         return keys
 
-    def _resolve_chunk(self, keys: np.ndarray, r0: int = 0,
-                       lo: int = 0, *, nthreads: int = 1,
-                       presorted: bool = False) -> ChunkHits:
+    def _resolve_chunk(self, keys: np.ndarray,
+                       rect: Optional[Tuple[int, int, int, int]] = None, *,
+                       nthreads: int = 1, presorted: bool = False
+                       ) -> ChunkHits:
         """Collector-pool work item: sort the chunk's keys in place, then
         resolve them to local coordinates (separator/padding hits dropped)
-        on ``nthreads`` native threads. Past the key bounds the keys are
-        chunk-local: (r0, lo) widens them. ``presorted`` keys skip the sort
+        on ``nthreads`` native threads, and bound each row of ``rect`` in
+        the kept keys. ``rect`` (r0, r1, lo, hi) is the launch's rectangle,
+        which holds the keys; past the key bounds the keys are chunk-local
+        and (r0, lo) widens them. ``presorted`` keys skip the sort
         (`tools/hostbench.py` times the work item both ways)."""
         if not self.keyform:
+            r0, lo = (0, 0) if rect is None else (rect[0], rect[2])
             rows, pos = pairs_from_keys(keys)
             return self._resolve_pairs(rows + r0, pos + lo)
         with self._pool_span("havac.sort", "sort"):
             if not presorted:
                 keys.sort()
-        res = kept = None
+        res = kept = row_offs = None
         with self._pool_span("havac.resolve", "resolve"):
             if self._database is not None and self._native is not None:
                 starts, lengths, prefix = self._tables
@@ -258,7 +285,12 @@ class KeyedLaunches:
                 res, kr, kp = resolve_block_with_keys(
                     rows, pos, self._database, self._prefix)
                 kept = keys_from_pairs(kr, kp)
-        return ChunkHits(keys, res, kept)
+            if kept is not None and rect is not None:
+                row_offs = np.searchsorted(kept, np.arange(
+                    rect[0], rect[1] + 1, dtype=np.uint64) << np.uint64(
+                        KEY_POS_BITS))
+        return ChunkHits(keys, res, kept, rect if row_offs is not None
+                         else None, row_offs)
 
     def _resolve_pairs(self, rows: np.ndarray, pos: np.ndarray) -> ChunkHits:
         """``_resolve_chunk`` past the key bounds: global int64 pairs."""
@@ -311,6 +343,7 @@ class PipelinedSweep(KeyedLaunches):
             ("stage", "dispatch", "gate_wait", "ready_wait", "fetch",
              "regrow", "sort", "resolve", "drain", "resolve_wait", "tail",
              "tail_merge", "tail_gather"), 0.0)
+        self.prof["tail_segments"] = 0
         with span("havac.stage", self.prof, "stage", request=request):
             self.device = torch.device(device)
             if self.device.type == "cuda":
@@ -399,8 +432,13 @@ class PipelinedSweep(KeyedLaunches):
                     carries[ri][:r1 - r0 + 1], dtype=np.int32)).to(dev)
             rows0 = np.asarray(rows0, dtype=np.int64)
             pos0 = np.asarray(pos0, dtype=np.int64)
+            # The done column chunks: every row, the leading positions.
+            rect = (0, self.P, 0, start_ci * self.chunk)
+            if pos0.size and not (0 <= pos0.min() and pos0.max() < rect[3]):
+                rect = None
             futures.append(
-                pool.submit(self._resolve_chunk, keys_from_pairs(rows0, pos0))
+                pool.submit(self._resolve_chunk, keys_from_pairs(rows0, pos0),
+                            rect=rect)
                 if self.keyform else
                 pool.submit(self._resolve_pairs, rows0, pos0))
         done = start_ci * self.n_row
@@ -408,7 +446,7 @@ class PipelinedSweep(KeyedLaunches):
         def drain_one():
             p = pend.pop(0)
             futures.append(pool.submit(self._resolve_chunk, self._pull(p),
-                                       p.r0, p.lo))
+                                       p.rect))
 
         for ci in range(start_ci, self.n_col):
             lo, hi = self.col_range(ci)
@@ -461,29 +499,90 @@ class PipelinedSweep(KeyedLaunches):
 def _merge_resolved(results: List[ChunkHits], prof: Dict[str, float],
                     request: int) -> ResolvedHits:
     """One table ordered by raw (row, position) key from per-chunk tables
-    that are each ordered already: a k-way merge of sorted runs. The whole
-    is ``prof``'s ``tail``: the merge order (``havac.tail.merge``,
-    ``tail_merge``), then the columns' concatenation and gather
-    (``havac.tail.gather``, ``tail_gather``)."""
+    that are each ordered already. The whole is ``prof``'s ``tail``.
+
+    Where every chunk with hits carries its rectangle and any two
+    rectangles are disjoint in rows or in positions, the order is the
+    geometry's: row by row, the chunks that cover the row in order of
+    their first position. :func:`_placement` turns the chunks' row counts
+    into (chunk, row) segments and their output offsets
+    (``havac.tail.merge``, ``tail_merge``), and the four columns are copied
+    there in one threaded native pass (``havac.tail.gather``,
+    ``tail_gather``); ``tail_segments`` counts the segments, a row that
+    one chunk alone covers taking its whole run of such rows as one.
+    Otherwise, as for hits past the key bounds or a resumed mesh sweep,
+    the kept keys are merged by comparison (``tail_merge``) and the
+    columns gathered through that order (``tail_gather``), and no segment
+    is counted."""
     with span(None, prof, "tail"):
         parts = [r for r in results if r.kept_keys.size]
         if not parts:
             return ResolvedHits(*(np.empty(0, dtype=np.int64),) * 4)
         with span("havac.tail.merge", prof, "tail_merge", request=request):
-            keys = np.concatenate([r.kept_keys for r in parts])
-            order = None
-            if len(parts) > 1 and keys.ndim == 2:  # (row, position) pairs
-                order = np.lexsort((keys[:, 1], keys[:, 0]))
-            elif len(parts) > 1:
-                offs = np.cumsum([0] + [r.kept_keys.size for r in parts])
-                order = native.merge_runs_u64_native(keys, offs, nthreads=8)
-                if order is None:
-                    order = np.argsort(keys, kind="stable")
-        with span("havac.tail.gather", prof, "tail_gather",
-                  request=request):
-            cols = []
-            for f in _RESOLVED_FIELDS:
-                col = np.concatenate([getattr(r.resolved, f) for r in parts])
-                cols.append(col if order is None else col[order])
-            del keys, order
+            plan = _placement(parts) if native.available() else None
+            order = _merge_order(parts) if plan is None else None
+        runs = [[getattr(r.resolved, f) for f in _RESOLVED_FIELDS]
+                for r in parts]
+        nseg = 0 if plan is None else int(plan[0].shape[0])
+        prof["tail_segments"] += nseg
+        with span("havac.tail.gather", prof, "tail_gather", request=request,
+                  segments=nseg):
+            if plan is not None:
+                cols = native.place_i32_native(runs, *plan, nthreads=8)
+            else:
+                cols = [np.concatenate(c) for c in zip(*runs)]
+                if order is not None:
+                    cols = [c[order] for c in cols]
         return ResolvedHits(*cols)
+
+
+def _merge_order(parts: List[ChunkHits]) -> Optional[np.ndarray]:
+    """The order of the concatenated kept keys by comparison: a k-way merge
+    of the sorted runs, a lexsort of pairs; None for one run."""
+    if len(parts) == 1:
+        return None
+    keys = np.concatenate([r.kept_keys for r in parts])
+    if keys.ndim == 2:  # (row, position) pairs
+        return np.lexsort((keys[:, 1], keys[:, 0]))
+    offs = np.cumsum([0] + [r.kept_keys.size for r in parts])
+    order = native.merge_runs_u64_native(keys, offs, nthreads=8)
+    return np.argsort(keys, kind="stable") if order is None else order
+
+
+def _placement(parts: List[ChunkHits]
+               ) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Segments that place the chunks' tables in (row, position) order by
+    their rectangles alone: (run, source offset) a segment, in output
+    order, and the output offsets (nseg + 1,). None unless every chunk has
+    a rectangle that holds its rows' counts and the rectangles of any two
+    chunks that share a row are disjoint in positions."""
+    if any(r.rect is None for r in parts):
+        return None
+    r0, r1, lo, hi = np.array([r.rect for r in parts], dtype=np.int64).T
+    if any(int(r.row_offs[0]) != 0 or int(r.row_offs[-1]) != r.kept_keys.size
+           for r in parts):
+        return None
+    runs, srcs, lens = [], [], []
+    edges = np.unique(np.concatenate([r0, r1]))
+    for b0, b1 in zip(edges[:-1].tolist(), edges[1:].tolist()):
+        cover = np.flatnonzero((r0 <= b0) & (r1 >= b1))
+        if not cover.size:
+            continue
+        cover = cover[np.argsort(lo[cover], kind="stable")]
+        if (hi[cover[:-1]] > lo[cover[1:]]).any():
+            return None
+        # Row offsets of each covering chunk over rows [b0, b1]: (rows+1, m).
+        offs = np.stack([parts[j].row_offs[b0 - r0[j]:b1 - r0[j] + 1]
+                         for j in cover], axis=1).astype(np.int64)
+        if cover.size == 1:  # one chunk covers these rows: one segment
+            offs = offs[[0, -1]]
+        runs.append(np.broadcast_to(cover, offs[1:].shape).ravel())
+        srcs.append(offs[:-1].ravel())
+        lens.append((offs[1:] - offs[:-1]).ravel())
+    seg_run, seg_src, seg_len = (np.concatenate(a) for a in (runs, srcs,
+                                                             lens))
+    keep = seg_len > 0
+    seg_dst = np.zeros(int(keep.sum()) + 1, dtype=np.int64)
+    np.cumsum(seg_len[keep], out=seg_dst[1:])
+    return seg_run[keep], seg_src[keep], seg_dst
+

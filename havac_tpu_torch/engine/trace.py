@@ -8,6 +8,13 @@ a device idle gap by the host event overlapping it most finds the phase
 itself. A span without a name only counts; ``gate_wait``, ``drain``,
 ``tail`` and the sweep's wall enclose named spans that way.
 
+Every counter of ``pipeline_prof`` holds seconds but one:
+``tail_segments`` counts the (chunk, row) segments that the tail placed by
+the chunks' rectangles (`engine/pipeline.py` `_merge_resolved`; 0 where it
+merged by comparison), and is also the ``segments`` argument of the
+``havac.tail.gather`` span. ``havac.tail.merge`` times the plan of that
+placement, or the comparison merge, and ``havac.tail.gather`` the copy.
+
 Spans are recorded whenever a ``torch.profiler`` session runs, on every
 thread it profiles; nothing else turns them on. The guard is
 ``torch.autograd.profiler._is_profiler_enabled``, which the profiler sets

@@ -205,6 +205,8 @@ def _load_locked() -> Optional[ctypes.CDLL]:
         lib.hv_merge_runs_u64.argtypes = [pu64, i64, pi64, i64, ctypes.c_int,
                                           pi64]
         lib.hv_permute_i32.argtypes = [pi32, pi64, i64, pi32, ctypes.c_int]
+        lib.hv_place_i32.argtypes = [p, i64, pi64, pi64, pi64, i64, p,
+                                     ctypes.c_int]
         lib.hv_keys_to_pairs.argtypes = [pu64, i64, pi64, pi64, ctypes.c_int]
     except AttributeError:  # pragma: no cover - rebuilt on demand
         pass
@@ -511,6 +513,47 @@ def permute_i32_native(src, order, out=None, nthreads: int = 8):
             and out.shape[0] == order.shape[0])
     lib.hv_permute_i32(_i32p(src), _i64p(order), order.shape[0], _i32p(out),
                        nthreads)
+    return out
+
+
+def place_i32_native(runs, seg_run, seg_src, seg_dst, nthreads: int = 8):
+    """Columns placed from segments of runs: ``runs[r]`` is run r's list of
+    int32 columns (every run the same number); segment s copies
+    ``seg_dst[s+1] - seg_dst[s]`` entries of each of run ``seg_run[s]``'s
+    columns, from ``seg_src[s]``, to ``seg_dst[s]`` of the output columns.
+    ``seg_dst`` is ascending from 0 and ends at the output's length. None
+    when unavailable."""
+    lib = _load()
+    if lib is None or not hasattr(lib, "hv_place_i32"):
+        return None
+    ncols = len(runs[0]) if runs else 0
+    if any(len(cols) != ncols or any(c.dtype != np.int32 for c in cols)
+           for cols in runs):
+        raise ValueError("every run needs the same number of int32 columns")
+    runs = [[np.ascontiguousarray(c) for c in cols] for cols in runs]
+    seg_run = np.ascontiguousarray(seg_run, dtype=np.int64)
+    seg_src = np.ascontiguousarray(seg_src, dtype=np.int64)
+    seg_dst = np.ascontiguousarray(seg_dst, dtype=np.int64)
+    nseg = seg_run.shape[0]
+    if seg_src.shape != (nseg,) or seg_dst.shape != (nseg + 1,):
+        raise ValueError("segments need a run and a source each and "
+                         "nseg + 1 destination offsets")
+    lens = np.diff(seg_dst)
+    sizes = np.array([min((c.shape[0] for c in cols), default=0)
+                      for cols in runs], dtype=np.int64)
+    if nseg and (seg_dst[0] != 0 or (lens < 0).any() or (seg_src < 0).any()
+                 or (seg_run < 0).any() or (seg_run >= len(runs)).any()
+                 or (seg_src + lens > sizes[seg_run]).any()):
+        raise ValueError("a segment lies outside its run or the output")
+    n = int(seg_dst[-1])
+    out = [np.empty(n, dtype=np.int32) for _ in range(ncols)]
+    if n and ncols:
+        srcs = np.array([c.ctypes.data for cols in runs for c in cols],
+                        dtype=np.uintp)
+        dsts = np.array([c.ctypes.data for c in out], dtype=np.uintp)
+        lib.hv_place_i32(srcs.ctypes.data, ncols, _i64p(seg_run),
+                         _i64p(seg_src), _i64p(seg_dst), nseg,
+                         dsts.ctypes.data, nthreads)
     return out
 
 

@@ -980,6 +980,42 @@ void hv_permute_i32(const int32_t* src, const int64_t* order, int64_t n,
   for (auto& th : threads) th.join();
 }
 
+// Place segments of k runs' int32 columns into ncols output columns, in
+// one threaded pass (the pipeline's tail: each run's resolved table is cut
+// into (run, row) segments whose output offsets follow from the launch
+// rectangles, `engine/pipeline.py` `_placement`). Segment s copies entries
+// [src[s], src[s] + dst[s+1] - dst[s]) of run run[s] to [dst[s], dst[s+1]);
+// dst is ascending with dst[0] = 0 and dst[nseg] the output's length.
+// cols[r * ncols + c] is run r's column c, out[c] the output's column c.
+// Each thread owns one contiguous range of the output, so it first-touches
+// its own pages; a segment that crosses a range's edge is split there.
+void hv_place_i32(const int32_t* const* cols, int64_t ncols,
+                  const int64_t* run, const int64_t* src, const int64_t* dst,
+                  int64_t nseg, int32_t* const* out, int nthreads) {
+  const int64_t n = nseg > 0 ? dst[nseg] : 0;
+  if (n <= 0) return;
+  if (nthreads < 1) nthreads = 1;
+  if (nthreads > 64) nthreads = 64;
+  if (n < (1 << 16)) nthreads = 1;
+  auto work = [&](int t) {
+    const int64_t a = n * t / nthreads, b = n * (t + 1) / nthreads;
+    // The last segment that starts at or before a.
+    int64_t s = (std::upper_bound(dst, dst + nseg + 1, a) - dst) - 1;
+    for (; s < nseg && dst[s] < b; s++) {
+      const int64_t x0 = std::max(a, dst[s]), x1 = std::min(b, dst[s + 1]);
+      if (x1 <= x0) continue;
+      const int64_t from = src[s] + (x0 - dst[s]);
+      for (int64_t c = 0; c < ncols; c++)
+        std::memcpy(out[c] + x0, cols[run[s] * ncols + c] + from,
+                    sizeof(int32_t) * static_cast<size_t>(x1 - x0));
+    }
+  };
+  std::vector<std::thread> threads;
+  for (int t = 1; t < nthreads; t++) threads.emplace_back(work, t);
+  work(0);
+  for (auto& th : threads) th.join();
+}
+
 // Split uint64 hit keys back to int64 (row, pos) pairs — the lazy
 // raw_hits() materialization.
 void hv_keys_to_pairs(const uint64_t* keys, int64_t n, int64_t* rows,

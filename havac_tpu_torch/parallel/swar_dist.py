@@ -80,7 +80,8 @@ class SwarDistributedSweep(KeyedLaunches):
     exchange's host copies and waits) and, as on the main path,
     ``dispatch`` (``havac.launch``, one a shard and step), ``ready_wait``
     (waiting on the device), ``fetch``, ``regrow``, ``sort``, ``resolve``,
-    ``resolve_wait`` and ``tail`` (``tail_merge`` and ``tail_gather``).
+    ``resolve_wait`` and ``tail`` (``tail_merge`` and ``tail_gather``),
+    and counts the tail's placed segments in ``tail_segments``.
     ``request`` is the engine's index of the run. After a run,
     ``launches``, ``steps`` and ``regrows`` count it, ``groups`` holds each
     model group's (first row, rows, row chunks S) and ``T`` the steps of
@@ -119,6 +120,7 @@ class SwarDistributedSweep(KeyedLaunches):
             ("dispatch", "sync", "ready_wait", "fetch", "regrow", "sort",
              "resolve", "seam", "resolve_wait", "tail", "tail_merge",
              "tail_gather"), 0.0)
+        self.prof["tail_segments"] = 0
         self.launches = 0
         self.steps = 0
         self.groups: List[Tuple[int, int, int]] = []
@@ -169,13 +171,16 @@ class SwarDistributedSweep(KeyedLaunches):
         with span("havac.sync", self.prof, "sync", request=self.request):
             return bool(all_reduce_max(self.mesh, int(flag)))
 
-    def _resolve_shard(self, keys: np.ndarray, r0: int, lo: int) -> ChunkHits:
+    def _resolve_shard(self, keys: np.ndarray,
+                       rect: Tuple[int, int, int, int]) -> ChunkHits:
         """``_resolve_chunk`` with the shard padding past the database's
-        end dropped (the last shards only)."""
+        end dropped (the last shards only); ``rect`` is the launch's row
+        block and shard."""
+        lo = rect[2]
         if lo + self.shard_width > self.L:
             pos = (keys & _POS_MASK).astype(np.int64)
             keys = keys[pos + (0 if self.keyform else lo) < self.L]
-        return self._resolve_chunk(keys, r0, lo)
+        return self._resolve_chunk(keys, rect)
 
     def _resume_hits(self, rows: np.ndarray, pos: np.ndarray) -> ChunkHits:
         rows = np.asarray(rows, dtype=np.int64)
@@ -312,7 +317,7 @@ class SwarDistributedSweep(KeyedLaunches):
             while pend and pend[0][0] < before:
                 p = pend.pop(0)[1]
                 futures.append(pool.submit(self._resolve_shard, self._pull(p),
-                                           p.r0, p.lo))
+                                           p.rect))
 
         for t in range(start_t, T):
             if self._aborted(abort_event):

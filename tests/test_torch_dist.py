@@ -340,7 +340,9 @@ def test_engine_on_a_mesh_matches_jax_mesh_and_single_device(planted, strand):
     assert ours.stats.cells == ours.database.padded_length * 192
     assert set(ours.stats.pipeline_prof) == {
         "dispatch", "sync", "ready_wait", "fetch", "regrow", "sort", "resolve",
-        "seam", "resolve_wait", "tail", "tail_merge", "tail_gather"}
+        "seam", "resolve_wait", "tail", "tail_merge", "tail_gather",
+        "tail_segments"}
+    assert ours.stats.pipeline_prof["tail_segments"] > 0
 
 
 def test_engine_isolation_matches_jax_swar_mesh(planted):

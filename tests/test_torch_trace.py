@@ -20,7 +20,8 @@ from ssvbench.run import Search, Window, metric_reader
 
 CHUNKS = dict(chunk_symbols=700, chunk_rows=40)
 API_KEYS = {"encode", "encode_wait", "hits"}
-NEW_KEYS = {"stage", "resolve_wait", "tail_merge", "tail_gather"} | API_KEYS
+NEW_KEYS = ({"stage", "resolve_wait", "tail_merge", "tail_gather",
+             "tail_segments"} | API_KEYS)
 # The spans the single-device path runs without a regrow, by thread.
 PRODUCER = {"havac.encode"}
 CONSUMER = {"havac.encode_wait", "havac.hits"}
@@ -109,6 +110,9 @@ def test_scan_spans_in_an_all_threads_trace(files, tmp_path, monkeypatch):
         pulls = [e for e in ev if e["name"] == "havac.pull"
                  and e["args"]["request"] == i]
         assert len(pulls) == len(launches) == st.num_chunks
+        (gather,) = [e["args"] for e in ev if e["name"] == "havac.tail.gather"
+                     and e["args"]["request"] == i]
+        assert gather["segments"] == st.pipeline_prof["tail_segments"] > 0
         assert {e["name"] for e in ev if e["args"]["request"] == i} == (
             PRODUCER | CONSUMER | WORKER | POOL)
 
@@ -163,6 +167,29 @@ def test_spans_without_a_profiler(files, monkeypatch):
     with profile(activities=[ProfilerActivity.CPU]):
         scan(hmm, paths[:1])
     assert "havac.launch" in entered
+
+
+def test_tail_segments_follow_the_column_chunks(files):
+    """One column chunk with hits in every row chunk places one segment a
+    row chunk; column chunks that interleave in each row place more."""
+    hmm, paths = files
+    eng = Havac(p_value=0.05, device="cpu").load_phmm(hmm).load_sequence(
+        paths[1])
+    counts = {}
+    for symbols in (1 << 20, 700):
+        sweep = PipelinedSweep(eng._codes(), eng.scores, symbols, 40, "cpu",
+                               eng.database, eng.phmm_prefix)
+        resolved, parts, _ = sweep.run()
+        counts[symbols] = sweep.prof["tail_segments"]
+        if symbols == 1 << 20:
+            assert sweep.n_col == 1 and sweep.n_row >= 2
+            rows = [sweep.row_range(ri) for ri in range(sweep.n_row)]
+            kept = eng.phmm_prefix[resolved.phmm_index] + resolved.phmm_position
+            assert all(((kept >= r0) & (kept < r1)).any() for r0, r1 in rows)
+            assert counts[symbols] == sweep.n_row
+        else:
+            assert sweep.n_col >= 3
+    assert counts[700] > counts[1 << 20]
 
 
 def test_span_charges_its_counters():

@@ -83,13 +83,15 @@ def differing(first: Tuple[np.ndarray, ...],
 
 
 def reference_answers(pl: Plan, paths: Dict[int, str], coll: ssv.Collection,
-                      scores: np.ndarray, device):
-    """The reference's resolved hits in each sampled file's windows, and
-    the files' reference databases."""
-    dbs = {f: ssv.read_fasta(paths[f]) for f in pl.files}
+                      scores: np.ndarray, device, isolate: bool = False):
+    """The reference's resolved hits in each sampled file's windows (the
+    models isolated where ``isolate``), and the files' reference
+    databases."""
+    dbs = {f: ssv.read_fasta(paths[f], coll.card) for f in pl.files}
     windows = [(dbs[f].symbols, a) for f in pl.files for a in pl.windows[f]]
     owner = np.array([f for f in pl.files for _ in pl.windows[f]])
-    win, row, pos = ssv.window_hits(windows, pl.width, scores, device)
+    win, row, pos = ssv.window_hits(windows, pl.width, scores, device,
+                                    coll.lengths if isolate else None)
     out = {}
     for f in pl.files:
         sel = owner[win] == f if win.size else np.zeros(0, dtype=bool)
@@ -126,12 +128,14 @@ def compare(ref: np.ndarray, got: Tuple[np.ndarray, ...],
 
 def judge(answers: Dict[int, Tuple[np.ndarray, ...]], program_scores: np.ndarray,
           hmm_path: str, paths: Dict[int, str], pl: Plan, p_value: float,
-          requests_failed: int, device, later=None) -> dict:
+          requests_failed: int, device, later=None,
+          isolate: bool = False) -> dict:
     """Readings of every compared number, the sample's size, and ``ok``.
     ``answers`` maps sampled pool indices to their first answers' columns
     (:func:`answer_columns`), ``later`` to the lists of their later
     answers' columns, which are emptied as they are compared; files the
-    window never answered are left out of the sample."""
+    window never answered are left out of the sample. ``isolate``: the
+    search isolates its models (``search.isolate_models``)."""
     later = later or {}
     n_later = sum(len(v) for v in later.values())
     changed = 0
@@ -148,7 +152,8 @@ def judge(answers: Dict[int, Tuple[np.ndarray, ...]], program_scores: np.ndarray
     served = Plan([f for f in pl.files if f in answers],
                   {f: pl.windows[f] for f in pl.files if f in answers},
                   pl.width)
-    ref, dbs = reference_answers(served, paths, coll, scores, device)
+    ref, dbs = reference_answers(served, paths, coll, scores, device,
+                                 isolate)
     missing = extra = compared = 0
     for f in served.files:
         m, e, c = compare(ref[f], answers[f], dbs[f], coll,

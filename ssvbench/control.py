@@ -36,12 +36,14 @@ def control_readings(cell, seed: int, device, tmp: str) -> dict:
     pl = check.plan(seed, sizes, cell.traffic["sample"])
     paths = {f: inputs.files[f].path for f in pl.files}
     p = cell.config["search"]["p_value"]
+    isolate = cell.config["search"].get("isolate_models", False)
     coll = ssv.read_hmm(inputs.hmm_path)
     low = ssv.project(coll, p, PRECISION)
-    got, _ = check.reference_answers(pl, paths, coll, low, device)
+    got, _ = check.reference_answers(pl, paths, coll, low, device, isolate)
     t = time.perf_counter()
     verdict = check.judge({f: tuple(a.T) for f, a in got.items()}, low,
-                          inputs.hmm_path, paths, pl, p, 0, device)
+                          inputs.hmm_path, paths, pl, p, 0, device,
+                          isolate=isolate)
     return dict(verdict["readings"], seed=seed, precision=PRECISION,
                 correct=verdict["ok"],
                 reference_hits=verdict["sample"]["reference_hits"],

@@ -10,32 +10,55 @@ Semantics (HAVAC's, the configuration's ``search`` block):
   The arithmetic is float32 with a double Gumbel step, as HAVAC's
   ``PhmmReprojection.cpp`` writes it; ``precision="bfloat16"`` rounds
   every float32 step to bfloat16 instead (the control).
+- The null is the alphabet's background: a residue ``x`` scores
+  ``log2(e_x / f_x)`` bits, so the projection adds ``−log2 f_x`` bits a
+  row, which is 2 for DNA's uniform 0.25 and HMMER3's amino composition
+  (:data:`AMINO_BACKGROUND`) for proteins.
 - The models' rows are concatenated and the database's records laid out
-  as ``rec0, SEP, rec1, SEP, ...``; a separator's symbol is the low two
-  bits of SplitMix64 of its position keyed by ``SEPARATOR_SEED``.
+  as ``rec0, SEP, rec1, SEP, ...``; a separator's symbol is SplitMix64 of
+  its position keyed by ``SEPARATOR_SEED``: its low two bits for DNA, the
+  value mod 20 for amino.
 - ``S[j][i] = S[j-1][i-1] + M[j][sym[i]]`` with ``S[-1][*] = S[*][-1] =
-  0``; below 0 it is 0; at 256 or more it is a hit and is 0.
+  0``; below 0 it is 0; at 256 or more it is a hit and is 0. With isolated
+  models (``search.isolate_models``) a model's first row takes no incoming
+  diagonal: ``S[j][i] = M[j][sym[i]]`` there, so no chain runs from one
+  model into the next.
 - A hit on a separator is dropped; the rest resolve to (sequence index,
   position in it, model index, position in it).
 
 A window of ``w`` positions at ``a`` is exact when swept from ``a − (P−1)``:
 no diagonal is longer than the ``P`` rows, so every chain that reaches the
 window starts inside that span, at row 0 or at the database's left edge.
-The sweep runs row by row in the diagonal frame (index ``d = i − j``),
-where row ``j`` needs ``d < C − j`` only, batched over windows.
+With isolated models no chain is longer than the longest model, ``Lmax``,
+and the window is exact from ``a − (Lmax − 1)``. The sweep runs row by row
+in the diagonal frame (index ``d = i − j``), where row ``j`` needs
+``d < C − j`` only, batched over windows (and, isolated, over the models'
+``j``-th rows).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 SEPARATOR_SEED = 0x5A5A
-SENTINEL = 4  # a position left of the database: its score forces 0
+AMINO = "ACDEFGHIKLMNPQRSTVWY"  # HMMER's column order, codes 0..19
+# HMMER3's p7_AminoFrequencies (src/hmmer.c), the Swiss-Prot 50.8
+# composition that p7_bg_Create uses as the protein null, A..Y.
+AMINO_BACKGROUND = np.array([
+    0.0787945, 0.0151600, 0.0535222, 0.0668298, 0.0397062, 0.0695071,
+    0.0229198, 0.0590092, 0.0594422, 0.0963728, 0.0237718, 0.0414386,
+    0.0482904, 0.0395639, 0.0540978, 0.0683364, 0.0540687, 0.0673417,
+    0.0114135, 0.0304133])
+# −log2 f_x a residue, worked out in double and stored as float32
+AMINO_NULL_BITS = (-np.log2(AMINO_BACKGROUND)).astype(np.float32)
+CARDINALITY = {"dna": 4, "rna": 4, "amino": 20}
+_SENTINEL_SCORE = -1024  # a position left of the database: forces 0
+_BLOCK_CELLS = 1 << 29  # the most state cells a block of models holds
 _NAT_LOG_2 = 0.69314718055994529
 _LOG2_E = 1.44269504089
 _GUMBEL_EPSILON = 5e-9
@@ -50,24 +73,31 @@ class Collection:
     max_lengths: np.ndarray  # int64 (models,)
     mu: np.ndarray  # float64 (models,), as written
     lam: np.ndarray  # float64 (models,)
-    emissions: np.ndarray  # float32 (rows, 4), negative natural logs
+    emissions: np.ndarray  # float32 (rows, card), negative natural logs
 
     @property
     def prefix(self) -> np.ndarray:
         return np.concatenate([[0], np.cumsum(self.lengths)])
 
+    @property
+    def card(self) -> int:
+        """The alphabet's size: 4 (DNA, RNA) or 20 (amino)."""
+        return int(self.emissions.shape[1])
+
 
 def read_hmm(path: str) -> Collection:
-    """The SSV fields of every model in a HMMER3 text file."""
+    """The SSV fields of every model in a HMMER3 text file, as many match
+    columns as its ``ALPH`` says (one alphabet a file)."""
     with open(path) as f:
         lines = f.read().splitlines()
     lengths, maxl, mu, lam, rows = [], [], [], [], []
+    cards = set()
     i = 0
     while i < len(lines):
         if not lines[i].startswith("HMMER3"):
             i += 1
             continue
-        leng = maxlen = None
+        leng = maxlen = card = None
         stats = None
         i += 1
         while not lines[i].startswith("HMM "):
@@ -76,18 +106,24 @@ def read_hmm(path: str) -> Collection:
                 leng = int(tok[1])
             elif tok and tok[0] == "MAXL":
                 maxlen = int(tok[1])
+            elif tok and tok[0] == "ALPH":
+                card = CARDINALITY.get(tok[1].lower())
+                if card is None:
+                    raise ValueError(f"{path}: unknown ALPH {tok[1]!r}")
             elif tok[:3] == ["STATS", "LOCAL", "MSV"]:
                 stats = (float(tok[3]), float(tok[4]))
             i += 1
-        if leng is None or stats is None:
-            raise ValueError(f"{path}: a model lacks LENG or STATS LOCAL MSV")
+        if leng is None or stats is None or card is None:
+            raise ValueError(
+                f"{path}: a model lacks LENG, ALPH or STATS LOCAL MSV")
+        cards.add(card)
         i += 2  # the alphabet header and the transition header
         i += 3 if lines[i].strip().startswith("COMPO") else 2
-        for pos in range(leng):
-            tok = lines[i].split()
+        for pos in range(leng):  # a Pfam-sized file has millions of nodes
+            tok = lines[i].replace("*", "inf").split(None, card + 1)
             if int(tok[0]) != pos + 1:
                 raise ValueError(f"{path}: node {tok[0]} where {pos + 1}")
-            rows.append([math.inf if t == "*" else float(t) for t in tok[1:5]])
+            rows.extend(map(float, tok[1:1 + card]))
             i += 3
         if lines[i].strip() != "//":
             raise ValueError(f"{path}: a model is not closed by //")
@@ -96,9 +132,12 @@ def read_hmm(path: str) -> Collection:
         maxl.append(maxlen if maxlen else 4 * leng)
         mu.append(stats[0])
         lam.append(stats[1])
+    if len(cards) > 1:
+        raise ValueError(f"{path}: models of more than one alphabet")
     return Collection(np.array(lengths, np.int64), np.array(maxl, np.int64),
                       np.array(mu), np.array(lam),
-                      np.array(rows, dtype=np.float32).reshape(-1, 4))
+                      np.array(rows, dtype=np.float32).reshape(
+                          -1, cards.pop() if cards else 4))
 
 
 def _rounding(precision: str):
@@ -154,14 +193,17 @@ def scale_factor(mu: float, lam: float, max_length: float,
 
 def project(coll: Collection, p_value: float,
             precision: str = "float32") -> np.ndarray:
-    """(rows, 4) int16 projected scores of the whole collection."""
+    """(rows, card) int16 projected scores of the whole collection: a
+    residue ``x`` adds ``f(B_x · scale)``, with ``B_x`` its null's bits
+    (2 for DNA, :data:`AMINO_NULL_BITS` for amino)."""
     f = _rounding(precision)
+    null_bits = f(2) if coll.card == 4 else f(AMINO_NULL_BITS)
     out = []
     prefix = coll.prefix
     for k in range(coll.lengths.shape[0]):
         scale = scale_factor(coll.mu[k], coll.lam[k], coll.max_lengths[k],
                              coll.lengths[k], p_value, precision)
-        alpha = f(f(2) * scale)
+        alpha = f(null_bits * scale)
         beta = f(f(_LOG2_E) * scale)
         em = coll.emissions[prefix[k]:prefix[k + 1]]
         val = f(alpha - f(f(em) * beta))
@@ -183,10 +225,17 @@ class Database:
         return np.concatenate([[0], np.cumsum(self.lengths + 1)])
 
 
-_ENCODE = np.full(256, 255, dtype=np.uint8)
-for _code, _letters in enumerate(("Aa", "Cc", "Gg", "TtUu")):
-    for _ch in _letters:
-        _ENCODE[ord(_ch)] = _code
+def _encoder(groups) -> np.ndarray:
+    table = np.full(256, 255, dtype=np.uint8)
+    for code, letters in enumerate(groups):
+        for ch in letters:
+            table[ord(ch)] = code
+    return table
+
+
+_ENCODE = {4: _encoder(("Aa", "Cc", "Gg", "TtUu")),
+           20: _encoder(c + c.lower() for c in AMINO)}
+_LETTERS = {4: "A, C, G, T, U", 20: AMINO}
 
 
 def splitmix64(values: np.ndarray, seed: int) -> np.ndarray:
@@ -198,69 +247,114 @@ def splitmix64(values: np.ndarray, seed: int) -> np.ndarray:
         return z ^ (z >> np.uint64(31))
 
 
-def read_fasta(path: str) -> Database:
-    """Records of A/C/G/T(/U) text, encoded 0..3, each followed by its
-    separator."""
+def read_fasta(path: str, card: int = 4) -> Database:
+    """Records of A/C/G/T(/U) text encoded 0..3 (``card`` 4), or of the 20
+    amino letters encoded 0..19 in HMMER's order (``card`` 20), each
+    followed by its separator. Any other letter is refused."""
     with open(path, "rb") as f:
         text = f.read()
+    encode = _ENCODE[card]
     names, seqs = [], []
     for rec in text.split(b">")[1:]:
         header, _, body = rec.partition(b"\n")
         names.append(header.split()[0].decode() if header.split() else "")
-        seqs.append(_ENCODE[np.frombuffer(
+        seqs.append(encode[np.frombuffer(
             body.replace(b"\n", b"").replace(b"\r", b""), dtype=np.uint8)])
     if any((s == 255).any() for s in seqs):
-        raise ValueError(f"{path}: the reference reads A, C, G, T, U only")
+        raise ValueError(f"{path}: the reference reads {_LETTERS[card]} only")
     lengths = np.array([s.shape[0] for s in seqs], dtype=np.int64)
     sep = np.cumsum(lengths + 1) - 1
     symbols = np.empty(int(sep[-1]) + 1 if len(sep) else 0, dtype=np.uint8)
     keep = np.ones(symbols.shape[0], dtype=bool)
     keep[sep] = False
     symbols[keep] = np.concatenate(seqs) if seqs else []
-    symbols[sep] = (splitmix64(sep, SEPARATOR_SEED)
-                    & np.uint64(3)).astype(np.uint8)
+    mixed = splitmix64(sep, SEPARATOR_SEED)
+    symbols[sep] = (mixed & np.uint64(3) if card == 4
+                    else mixed % np.uint64(card)).astype(np.uint8)
     return Database(names, lengths, symbols)
 
 
 # ----------------------------------------------------------------- sweep
 
 def window_hits(windows: Sequence[Tuple[np.ndarray, int]], width: int,
-                scores: np.ndarray, device="cpu"
+                scores: np.ndarray, device="cpu",
+                model_lengths: Optional[np.ndarray] = None
                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Every raw hit (window, row, global position) in each window
     ``(symbols, a)``, the positions ``[a, a + width)`` of ``symbols``: the
-    exact SSV, each window swept from ``a − (P − 1)`` (positions left of
-    the database read as a sentinel whose score forces 0)."""
-    P = scores.shape[0]
-    n, C = len(windows), P - 1 + width
-    span = np.full((n, C), SENTINEL, dtype=np.int32)
-    for k, (symbols, a) in enumerate(windows):
-        src = symbols[max(a - (P - 1), 0):a + width]
-        span[k, C - src.shape[0]:] = src
+    exact SSV over ``scores`` ((rows, card)), each window swept from
+    ``a − (P − 1)`` (positions left of the database read as the sentinel
+    symbol ``card``, whose score forces 0). With ``model_lengths`` (the
+    models' lengths in row order) the models are isolated: each starts
+    from zero and each window is swept from ``a − (Lmax − 1)``; without,
+    the rows are one chain, as one model of ``P`` rows."""
+    P, card = scores.shape
+    lengths = (np.array([P]) if model_lengths is None
+               else np.asarray(model_lengths, dtype=np.int64))
+    table = torch.full((P, card + 1), _SENTINEL_SCORE, dtype=torch.int16)
+    table[:, :card] = torch.from_numpy(np.asarray(scores, dtype=np.int16))
     dev = torch.device(device)
-    table = torch.full((P, 5), -1024, dtype=torch.int16)
-    table[:, :4] = torch.from_numpy(np.asarray(scores, dtype=np.int16))
     table = table.to(dev)
-    sym = torch.from_numpy(span).to(dev)
-    state = torch.zeros((n, C), dtype=torch.int16, device=dev)
-    block = torch.zeros((min(_HIT_BLOCK_ROWS, P), n, width), dtype=torch.bool,
-                        device=dev)
-    found = []
-    for j in range(P):
-        view = state[:, :C - j]
-        view.add_(table[j][sym[:, j:]])
-        hit = view >= 256
-        view.clamp_(min=0).masked_fill_(hit, 0)
-        r = j % block.shape[0]
-        block[r] = hit[:, P - 1 - j:]
-        if r == block.shape[0] - 1 or j == P - 1:
-            nz = block[:r + 1].nonzero()
-            nz[:, 0] += j - r
-            found.append(nz.cpu())
-    hits = torch.cat(found).numpy() if found else np.empty((0, 3), np.int64)
+    lead = int(lengths.max()) - 1
+    n, C = len(windows), lead + width
+    span = np.full((n, C), card, dtype=np.int32)
+    for k, (symbols, a) in enumerate(windows):
+        src = symbols[max(a - lead, 0):a + width]
+        span[k, C - src.shape[0]:] = src
+    hits = _sweep(torch.from_numpy(span).to(dev), width, table, lengths)
     win, row, col = hits[:, 1], hits[:, 0], hits[:, 2]
     starts = np.array([a for _, a in windows], dtype=np.int64)
     return win, row, starts[win] + col if n else col
+
+
+def _sweep(sym: torch.Tensor, width: int, table: torch.Tensor,
+           lengths: np.ndarray) -> np.ndarray:
+    """(row, window, column) of every hit, each model its own chain from
+    zero. Models go longest first, in blocks of at most ``_BLOCK_CELLS``
+    state cells; a block sweeps the ``r``-th row of each of its models
+    longer than ``r`` together, over the last ``len_max − 1 + width``
+    positions of the span (``len_max`` its longest model), and keeps the
+    windows' hits of up to ``_HIT_BLOCK_ROWS`` rows before it pulls them."""
+    n, C = sym.shape
+    dev = sym.device
+    order = np.argsort(-lengths, kind="stable")
+    first = np.concatenate([[0], np.cumsum(lengths)])[:-1]
+    found = []
+    i = 0
+    while i < order.shape[0]:
+        longest = int(lengths[order[i]])
+        Cb = longest - 1 + width
+        m = max(1, min(order.shape[0] - i, _BLOCK_CELLS // (n * Cb)))
+        block = order[i:i + m]
+        i += m
+        lens = lengths[block]  # descending
+        alive = np.searchsorted(-lens, -np.arange(longest), side="left")
+        # the block's rows, row r of every model together (a short model's
+        # later rows repeat its last, and are never read)
+        rows = first[block][None, :] + np.minimum(
+            np.arange(longest)[:, None], lens[None, :] - 1)
+        sub = table[torch.from_numpy(rows).to(dev)]  # (longest, m, card + 1)
+        base = torch.from_numpy(first[block]).to(dev)
+        s = sym[:, C - Cb:]
+        state = torch.zeros((m, n, Cb), dtype=torch.int16, device=dev)
+        kept = torch.zeros((max(1, min(_HIT_BLOCK_ROWS, longest,
+                                       _BLOCK_CELLS // (m * n * width))),
+                            m, n, width), dtype=torch.bool, device=dev)
+        for r in range(longest):
+            mr = int(alive[r])  # the models longer than r
+            view = state[:mr, :, :Cb - r]
+            view.add_(sub[r, :mr][:, s[:, r:]])
+            hit = view >= 256
+            view.clamp_(min=0).masked_fill_(hit, 0)
+            q = r % kept.shape[0]
+            kept[q, :mr] = hit[:, :, Cb - width - r:]
+            if mr < m:
+                kept[q, mr:] = False
+            if q == kept.shape[0] - 1 or r == longest - 1:
+                nz = kept[:q + 1].nonzero()  # (row - r + q, model, win, col)
+                rows = base[nz[:, 1]] + nz[:, 0] + (r - q)
+                found.append(torch.cat([rows[:, None], nz[:, 2:]], 1).cpu())
+    return torch.cat(found).numpy() if found else np.empty((0, 3), np.int64)
 
 
 def resolve(rows: np.ndarray, positions: np.ndarray, db: Database,

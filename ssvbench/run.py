@@ -5,8 +5,9 @@
 
 Set-up (timed from process start to the window's first request): the cell's
 inputs drawn from ``--seed`` and written under ``$TMPDIR`` (removed at
-exit), one warm ``Havac(device="cuda", p_value, strand="forward")`` that
-loads the models (``load_phmm``), and ``scan_files`` over the traffic's
+exit), one warm ``Havac(device="cuda", p_value, strand, isolate_models)``
+as the configuration's ``search`` states it, that loads the models
+(``load_phmm``), and ``scan_files`` over the traffic's
 files, cycled, whose first search (file 0) builds and warms everything.
 The window is a closed loop: the caller takes each file's hits before it
 asks for the next; the search in flight at the deadline is finished and
@@ -83,6 +84,8 @@ class Window:
     device_kind: str
     trace: Optional[trace_mod.TraceSummary] = None
     notes: dict = field(default_factory=dict)
+    card: int = 4  # the alphabet's size: 4 nucleotide, 20 amino
+    device_busy_s: Optional[float] = None  # the device trace's busy seconds
 
 
 @dataclass
@@ -128,14 +131,19 @@ def metric_reader(name: str):
 
 
 def end_to_end(window: Window, setup_s: float) -> Dict[str, float]:
-    """The end-to-end metrics, all by the host's clock."""
+    """The end-to-end metrics: by the host's clock, and, where the window
+    ran under a device trace, the device's busy milliseconds a search."""
     secs = [s.seconds for s in window.searches]
-    return {
+    values = {
         "setup_s": setup_s,
         "search_gcups": sum(s.positions for s in window.searches)
         * window.rows / window.seconds / 1e9,
         "search_p95_s": float(np.percentile(secs, 95)),
     }
+    if window.device_busy_s is not None:
+        values["search_device_ms"] = (1e3 * window.device_busy_s
+                                      / len(window.searches))
+    return values
 
 
 def nvidia_smi() -> dict:
@@ -197,8 +205,9 @@ def measure(cell: Cell, seed: int, seconds: float, traced: bool,
         raise RuntimeError("the port's native host core is not loaded: "
                            "the benchmark measures no fallback")
     t = time.perf_counter()
+    isolate = search_cfg.get("isolate_models", False)
     engine = Havac(p_value=search_cfg["p_value"], device=device,
-                   strand=search_cfg["strand"])
+                   strand=search_cfg["strand"], isolate_models=isolate)
     engine.load_phmm(inputs.hmm_path)
     setup["load_phmm_s"] = time.perf_counter() - t
     paths = [f.path for f in files]
@@ -211,10 +220,17 @@ def measure(cell: Cell, seed: int, seconds: float, traced: bool,
     setup["nvcc_build_s"] = ssv_cuda.build_seconds
     setup_s = time.perf_counter() - _T_START
 
+    # An untraced window whose cell reports an end-to-end metric from the
+    # device trace runs under a profiler of device activity alone.
+    device_clock = cuda and not traced and any(
+        m["source"] == "device_trace" for m in cell.end_to_end)
     prof = None
     if traced:
         acts = [ProfilerActivity.CPU] + [ProfilerActivity.CUDA] * cuda
         prof = profile(activities=acts, **_all_threads())
+        prof.start()
+    elif device_clock:
+        prof = profile(activities=[ProfilerActivity.CUDA])
         prof.start()
     searches: List[Search] = []
     kept = {}  # sampled file -> its first answer
@@ -255,13 +271,21 @@ def measure(cell: Cell, seed: int, seconds: float, traced: bool,
     gen.close()
     smi = nvidia_smi() if cuda else {}
     summary = None
+    device_busy_s = None
     if prof is not None:
         prof.stop()
         tpath = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(tpath)
         del prof
-        summary = trace_mod.reduce_file(tpath)
+        if traced:
+            summary = trace_mod.reduce_file(tpath)
+            device_busy_s = summary.busy_s
+        else:
+            device_busy_s = trace_mod.busy_file(tpath)
         os.remove(tpath)
+        if cuda and not device_busy_s:
+            raise RuntimeError("the device trace holds no kernel, copy or "
+                               "fill in the window")
     if cuda:
         peak = int(torch.cuda.max_memory_allocated())
         kind = torch.cuda.get_device_name()
@@ -276,7 +300,7 @@ def measure(cell: Cell, seed: int, seconds: float, traced: bool,
         raise RuntimeError("a search ran without the native host core")
 
     window = Window(searches, window_s, inputs.model_positions, kind,
-                    summary)
+                    summary, card=inputs.card, device_busy_s=device_busy_s)
     for s in searches:
         out.write(json.dumps({
             "search": s.file, "positions": s.positions, "hits": s.hits,
@@ -299,7 +323,8 @@ def measure(cell: Cell, seed: int, seconds: float, traced: bool,
     del kept
     verdict = check.judge(answers, program_scores, inputs.hmm_path,
                           {f: files[f].path for f in pl.files}, pl,
-                          search_cfg["p_value"], failed, device, later)
+                          search_cfg["p_value"], failed, device, later,
+                          isolate)
     del later
     reference_s = time.perf_counter() - t
     dev = {"platform": "gpu" if cuda else "cpu",

@@ -10,10 +10,13 @@ import sys
 import numpy as np
 import pytest
 
+from havac_tpu_torch.engine import api
 from havac_tpu_torch.engine.api import Havac
 from havac_tpu_torch.hits.decode import ResolvedHits
+from havac_tpu_torch.scoring import reprojection
 from ssvbench import control, run
-from ssvbench.tests.tiny import tiny_cell
+from ssvbench.reference import ssv
+from ssvbench.tests.tiny import tiny_amino_cell, tiny_cell
 
 SEED = 2**31 + 77
 
@@ -21,6 +24,32 @@ SEED = 2**31 + 77
 def _run(tmp_path, cell=None, seconds=2.0):
     return run.measure(cell or tiny_cell(), SEED, seconds, False, "cpu",
                        str(tmp_path), out=open(os.devnull, "w"))
+
+
+def _amino_null(models, p_value):
+    """The port's projection with the amino background in place of its
+    2 bits an amino residue, the null HMMER scores a protein against."""
+    blocks = []
+    for m in models:
+        scale = reprojection.threshold256_scale_factor(
+            m.msv_mu, m.msv_lambda, m.max_length, m.model_length, p_value)
+        bits = ssv.AMINO_NULL_BITS if m.alphabet == "amino" else np.float32(2)
+        null = (bits * scale).astype(np.float32)
+        v = null - m.match_scores * (reprojection.LOG2_E * scale)
+        blocks.append(np.clip(reprojection.c_round(v), -128, 127
+                              ).astype(np.int8))
+    return np.concatenate(blocks, axis=0)
+
+
+@pytest.fixture
+def amino_null(monkeypatch):
+    """Searches of amino models scored against the amino background
+    (nucleotide models as the port scores them)."""
+    monkeypatch.setattr(api, "project_models", _amino_null)
+
+
+def _cell(name):
+    return tiny_amino_cell() if name == "amino" else tiny_cell(name)
 
 
 @pytest.mark.parametrize("cell", ["rfam150k.contigs-stream",
@@ -33,10 +62,39 @@ def test_sound_run_is_correct(cell, tmp_path):
     assert all(c["value"] == 0 for c in res["checks"].values())
 
 
-def test_control_is_not_correct(tmp_path):
-    row = control.control_readings(tiny_cell(), SEED, "cpu", str(tmp_path))
+@pytest.mark.parametrize("isolate", [True, False])
+def test_sound_amino_run_is_correct(isolate, tmp_path, amino_null):
+    """Amino models against proteomes, isolated or chained: every number
+    at 0 once the search scores residues against the amino background."""
+    res = _run(tmp_path, tiny_amino_cell(1_500 if isolate else 500,
+                                         isolate))
+    assert res["correct"], res["checks"]
+    assert res["sample"]["reference_hits"] > 0
+    assert all(c["value"] == 0 for c in res["checks"].values())
+
+
+@pytest.mark.parametrize("cell", ["rfam150k.contigs-stream", "amino"])
+def test_control_is_not_correct(cell, tmp_path):
+    row = control.control_readings(_cell(cell), SEED, "cpu", str(tmp_path))
     assert row["score_rows_differing"] > 0
     assert row["hits_missing"] + row["hits_extra"] > 0
+
+
+# the control's readings of the tiny nucleotide cells at seed 2**31 + 11, as
+# the reference read them before it took amino models and isolation
+PINNED_CONTROL = {
+    "rfam150k.contigs-stream": (1200, 525, 0, 670),
+    "rfam150k.chr22-genomic": (1200, 227, 1, 285),
+    "rfam150k.chr22-uniform": (1200, 28, 0, 68),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(PINNED_CONTROL))
+def test_nucleotide_reference_is_pinned(cell, tmp_path):
+    row = control.control_readings(tiny_cell(cell), 2**31 + 11, "cpu",
+                                   str(tmp_path))
+    assert (row["score_rows_differing"], row["hits_missing"],
+            row["hits_extra"], row["reference_hits"]) == PINNED_CONTROL[cell]
 
 
 def _take(h, keep):
@@ -75,10 +133,12 @@ def _altered(hits):
     return wrapped
 
 
+@pytest.mark.parametrize("cell", ["rfam150k.contigs-stream", "amino"])
 @pytest.mark.parametrize("fault", [_stale, _half, _altered])
-def test_faults_are_not_correct(fault, tmp_path, monkeypatch):
+def test_faults_are_not_correct(fault, cell, tmp_path, monkeypatch,
+                                amino_null):
     monkeypatch.setattr(Havac, "hits", fault(Havac.hits))
-    res = _run(tmp_path)
+    res = _run(tmp_path, _cell(cell))
     assert not res["correct"]
     assert res["checks"]["hits_missing"]["value"] + \
         res["checks"]["hits_extra"]["value"] > 0
@@ -140,4 +200,5 @@ def test_cell_on_the_card():
         assert out.returncode == 0, out.stderr[-3000:]
         res = json.loads(out.stdout.splitlines()[-1])
         assert res["correct"], res["checks"]
-        assert "setup_s" in res["metrics"] and "search_gcups" in res["metrics"]
+        assert set(res["metrics"]) == {
+            m["name"] for m in run.load_cell(cell).end_to_end}

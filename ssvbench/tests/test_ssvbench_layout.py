@@ -65,6 +65,24 @@ def test_every_entry_resolves(bench):
     assert len(names) == len(set(names))
 
 
+def test_every_cell_reports_what_its_metrics_move(bench):
+    """Each cell reports setup_s, another end-to-end metric and a per-layer
+    metric, and each per-layer metric's cells report the end-to-end metric
+    that it moves."""
+    cells = [w["name"] for w in bench["workloads"]]
+
+    def of(metric, cell):
+        return cell in metric.get("workloads", cells)
+
+    for cell in cells:
+        e2e = {m["name"] for m in bench["end_to_end"] if of(m, cell)}
+        assert "setup_s" in e2e and len(e2e) >= 2, cell
+        per_layer = [m for m in bench["per_layer"] if of(m, cell)]
+        assert per_layer, cell
+        for m in per_layer:
+            assert m["moves"] in e2e, (cell, m["name"])
+
+
 def test_no_jax_is_loaded():
     """A CPU run of a tiny cell, every harness module imported: no module
     whose top-level name is jax, jaxlib, flax or havac_tpu (compared whole),

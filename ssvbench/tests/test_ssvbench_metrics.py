@@ -45,6 +45,40 @@ def test_p95_is_over_every_request():
         float(np.percentile(secs, 95)))
 
 
+def test_device_ms_is_the_busy_union_over_every_search():
+    w = _window([(0, 4, 10**9), (4, 8, 10**9), (8, 12, 10**9)], deadline=10)
+    assert "search_device_ms" not in end_to_end(w, 0)
+    w.device_busy_s = 0.6
+    assert end_to_end(w, 0)["search_device_ms"] == pytest.approx(200.0)
+
+
+@pytest.mark.parametrize("with_window", [True, False])
+def test_busy_seconds_of_a_device_only_trace(with_window):
+    """The union of kernels and copies: clipped to the window's span where
+    the trace holds it, all of the trace's where it does not (a profiler of
+    device activity alone)."""
+    k = "void ssv_word_kernel<true>(int)"
+    ev = _events([(k, 0.0, 3_000.0), (k, 100_000.0, 200_000.0),
+                  ("Memcpy HtoD", 250_000.0, 100_000.0),
+                  (k, 1_900_000.0, 500_000.0)])
+    if not with_window:
+        ev = [e for e in ev if e["name"] != trace.WINDOW_SPAN]
+        busy = 3_000.0 + 250_000.0 + 500_000.0
+    else:
+        busy = 2_000.0 + 250_000.0 + 100_000.0
+    assert trace.busy_seconds(ev) == pytest.approx(busy * 1e-6)
+    if with_window:
+        assert trace.busy_seconds(ev) == pytest.approx(
+            trace.reduce_events(ev).busy_s)
+
+
+def test_host_gcups_reads_the_end_to_end_arithmetic():
+    w = _window([(0, 4, 10**9), (4, 8, 10**9), (8, 12, 10**9),
+                 (12, 16, 10**9)], deadline=10)
+    assert metric_reader("host.search_gcups")(w) == pytest.approx(
+        end_to_end(w, 0)["search_gcups"])
+
+
 def test_host_shares():
     w = _window([(0, 2, 10), (2, 4, 10)], deadline=3)
     assert metric_reader("pipeline.hit_host_share")(w) == pytest.approx(0.1)
@@ -99,6 +133,37 @@ def test_roofline_share_and_bound():
         [("ssv_word_kernel<x>", 2_000.0, 1_500_000.0)]))
     share = metric_reader("ssv_word_kernel_roofline")(w)
     assert share == pytest.approx(100 * least["seconds"] / 1.5)
+
+
+def test_roofline_counts_the_alphabet():
+    """Codes at ⌈log2 card⌉ bits and scores at ``card`` bytes a row; the
+    operations do not depend on the alphabet, and the reader passes the
+    window's alphabet through."""
+    peak = peaks(H100)
+    assert ssv_sweep.work([(1_000, 100, 0)]) == ssv_sweep.work(
+        [(1_000, 100, 0)], card=4) == (0.5 * 1_000 * 100, 1_000 / 4 + 400)
+    assert ssv_sweep.work([(1_000, 100, 0)], card=20) == (
+        0.5 * 1_000 * 100, 1_000 * 5 / 8 + 100 * 20)
+    searches = [(1_400_000, 3_300_000, 5_000_000)]
+    w = _window([(0, 4, 1_400_000)], deadline=1, rows=3_300_000)
+    w.searches[0].hits = 5_000_000
+    w.card = 20
+    w.trace = trace.reduce_events(_events(
+        [("ssv_word_kernel<false, true>", 2_000.0, 1_500_000.0)]))
+    least = ssv_sweep.least_seconds(searches, peak, card=20)
+    assert metric_reader("ssv_word_kernel_roofline")(w) == pytest.approx(
+        100 * least["seconds"] / 1.5)
+
+
+def test_roofline_device_is_the_same_reading():
+    w = _window([(0, 4, 50_818_468)], deadline=1, rows=10_122)
+    w.searches[0].hits = 2_900_000
+    w.trace = trace.reduce_events(_events(
+        [("ssv_word_kernel<x>", 2_000.0, 95_000.0)]))
+    assert metric_reader("ssv_word_kernel_roofline.device")(w) == (
+        metric_reader("ssv_word_kernel_roofline")(w))
+    assert metric_reader("ssv_word_kernel_roofline.device")(
+        _window([(0, 4, 10**6)], deadline=1)) is None
 
 
 def test_roofline_fails_without_the_kernel():

@@ -70,14 +70,10 @@ def _label(g0: float, g1: float, spans, host) -> str:
     return f"{span} / {best or 'no recorded host event'}"
 
 
-def reduce_events(events: List[dict]) -> TraceSummary:
-    """The summary of a chrome trace's ``traceEvents``; times in seconds."""
-    complete = [e for e in events if e.get("ph") == "X" and "dur" in e]
-    windows = [e for e in complete if e.get("name") == WINDOW_SPAN]
-    if not windows:
-        raise ValueError(f"the trace holds no {WINDOW_SPAN} span")
-    w = windows[0]
-    w0, w1 = float(w["ts"]), float(w["ts"]) + float(w["dur"])
+def _device(complete: List[dict], w0: float, w1: float
+            ) -> Tuple[List[Tuple[float, float]], Dict[str, float]]:
+    """The device activity clipped to [w0, w1]: its intervals, and its
+    seconds by name."""
     device, kernel_s = [], {}
     for e in complete:
         if e.get("cat") not in DEVICE_CATS:
@@ -88,6 +84,18 @@ def reduce_events(events: List[dict]) -> TraceSummary:
             continue
         device.append((a, b))
         kernel_s[e["name"]] = kernel_s.get(e["name"], 0.0) + (b - a) * 1e-6
+    return device, kernel_s
+
+
+def reduce_events(events: List[dict]) -> TraceSummary:
+    """The summary of a chrome trace's ``traceEvents``; times in seconds."""
+    complete = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    windows = [e for e in complete if e.get("name") == WINDOW_SPAN]
+    if not windows:
+        raise ValueError(f"the trace holds no {WINDOW_SPAN} span")
+    w = windows[0]
+    w0, w1 = float(w["ts"]), float(w["ts"]) + float(w["dur"])
+    device, kernel_s = _device(complete, w0, w1)
     busy = union(device)
     busy_s = sum(b - a for a, b in busy) * 1e-6
     spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
@@ -108,3 +116,24 @@ def reduce_events(events: List[dict]) -> TraceSummary:
 def reduce_file(path: str) -> TraceSummary:
     with open(path) as f:
         return reduce_events(json.load(f)["traceEvents"])
+
+
+def busy_seconds(events: List[dict]) -> float:
+    """Seconds of the union of the trace's device activity, clipped to the
+    window's span where the trace holds one. A profiler of device activity
+    alone records no host span; it is started and stopped around the
+    window, and all that it holds is the window's."""
+    complete = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    windows = [e for e in complete if e.get("name") == WINDOW_SPAN]
+    if windows:
+        w0 = float(windows[0]["ts"])
+        w1 = w0 + float(windows[0]["dur"])
+    else:
+        w0, w1 = float("-inf"), float("inf")
+    device, _ = _device(complete, w0, w1)
+    return sum(b - a for a, b in union(device)) * 1e-6
+
+
+def busy_file(path: str) -> float:
+    with open(path) as f:
+        return busy_seconds(json.load(f)["traceEvents"])

@@ -16,7 +16,10 @@ collection and the genome's two repeat families are the configuration's
 alone, drawn from its fixed ``collection.seed`` with its
 ``repeat_model_share`` (a deployment searches one collection, whatever the
 traffic); the files' sequences, sizes and order are drawn from
-``--seed``.
+``--seed``. A collection of ``alphabet`` ``"amino"`` is drawn from the
+amino background (HMMER3's, :data:`ssvbench.reference.ssv.AMINO_BACKGROUND`)
+and searched by ``"proteome"`` traffic; the nucleotide path draws exactly
+as before.
 """
 
 from __future__ import annotations
@@ -28,14 +31,23 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
+from ssvbench.reference.ssv import AMINO, AMINO_BACKGROUND
+
 FASTA_LINE = 80
 NUCLEOTIDES = b"ACGT"
+AMINO_LETTERS = AMINO.encode()
+# HMMER's frequencies sum to 0.9999999: the draws take them normalised
+BACKGROUND = AMINO_BACKGROUND / AMINO_BACKGROUND.sum()
+# the insert and composition lines of an amino model: the background's
+# negative natural logs, as HMMER writes a null-like insert emission
+_AMINO_FLAT = "  ".join(f"{v:.5f}" for v in -np.log(AMINO_BACKGROUND))
 
 
 @dataclass
 class Model:
     """One profile HMM as the SSV filter reads it: match emissions as
-    negative natural-log probabilities, ``(length, 4)`` float32."""
+    negative natural-log probabilities, ``(length, card)`` float32 (card 4
+    nucleotide, 20 amino)."""
 
     name: str
     match_scores: np.ndarray
@@ -66,6 +78,7 @@ class Inputs:
     hmm_path: str
     model_lengths: np.ndarray  # int64 (models,)
     files: List[FastaFile] = field(default_factory=list)
+    card: int = 4  # the alphabet's size: 4 nucleotide, 20 amino
 
     @property
     def model_positions(self) -> int:
@@ -132,6 +145,57 @@ def synthetic_models(rng: np.random.Generator, total_positions: int,
             consensus, f"synth-{i}", match_probability, msv_mu, msv_lambda))
         cum += models[-1].model_length
         i += 1
+    return models
+
+
+def lognormal_lengths(rng: np.random.Generator, n: int, spec: dict
+                      ) -> np.ndarray:
+    """``n`` log-normal lengths (``median``, ``sigma``), rounded and
+    clipped to ``clip``."""
+    lo, hi = (int(v) for v in spec["clip"])
+    x = spec["median"] * np.exp(spec["sigma"] * rng.standard_normal(n))
+    return np.clip(np.round(x), lo, hi).astype(np.int64)
+
+
+def amino_model(consensus_codes: np.ndarray, name: str,
+                match_probability: float, msv_mu: float,
+                msv_lambda: float) -> Model:
+    """A protein model whose match states emit ``consensus_codes`` with
+    ``match_probability`` and the rest over the other 19 residues in
+    proportion to the background; maximum instance length four times its
+    length, as :func:`model_from_consensus`."""
+    codes = np.asarray(consensus_codes, dtype=np.int64)
+    length = codes.shape[0]
+    rest = BACKGROUND[codes]
+    probs = ((1.0 - match_probability) * BACKGROUND[None, :]
+             / (1.0 - rest)[:, None])
+    probs[np.arange(length), codes] = match_probability
+    return Model(name=name, match_scores=(-np.log(probs)).astype(np.float32),
+                 max_length=4 * length, msv_mu=msv_mu, msv_lambda=msv_lambda)
+
+
+def amino_models(rng: np.random.Generator, coll: dict) -> List[Model]:
+    """Protein consensus models drawn from the amino background until
+    ``model_positions`` exist, the last cut to fit. Lengths are log-normal
+    (``model_length``: ``median``, ``sigma``, ``clip``) or uniform over
+    ``model_length_range``."""
+    if float(coll.get("repeat_model_share", 0)):
+        raise ValueError("an amino collection draws no repeat families: "
+                         "its repeat_model_share must be 0")
+    total = int(coll["model_positions"])
+    models: List[Model] = []
+    cum = 0
+    while cum < total:
+        if "model_length" in coll:
+            length = int(lognormal_lengths(rng, 1, coll["model_length"])[0])
+        else:
+            length = int(rng.integers(*coll["model_length_range"]))
+        length = min(length, total - cum)
+        consensus = rng.choice(20, size=length, p=BACKGROUND)
+        models.append(amino_model(
+            consensus, f"prot-{len(models)}", coll["match_probability"],
+            coll["msv_mu"], coll["msv_lambda"]))
+        cum += length
     return models
 
 
@@ -225,46 +289,126 @@ def contig_lengths(rng: np.random.Generator, total: int, spec: dict
     return out
 
 
+def proteome(rng: np.random.Generator, proteins: int, rec: dict,
+             models: Sequence[Model]) -> List[np.ndarray]:
+    """One proteome of ``proteins`` proteins' codes: log-normal
+    ``protein_length``, residues i.i.d. from the amino background. A
+    ``domain_share`` of the proteins carry ``domains`` [lo, hi] planted
+    domains, each one sample of a seed-drawn model's match emissions over
+    the whole model, written without overlap at seed-drawn offsets; a
+    protein too short for its domains is lengthened to hold them."""
+    lengths = lognormal_lengths(rng, proteins, rec["protein_length"])
+    carriers = np.flatnonzero(rng.random(proteins) < rec["domain_share"])
+    lo, hi = (int(v) for v in rec["domains"])
+    per = rng.integers(lo, hi + 1, size=carriers.shape[0])
+    picks = rng.integers(0, len(models), size=int(per.sum()))
+    sizes = np.array([models[p].model_length for p in picks], np.int64)
+    owner = np.repeat(np.arange(carriers.shape[0]), per)
+    need = np.bincount(owner, weights=sizes, minlength=carriers.shape[0])
+    lengths[carriers] = np.maximum(lengths[carriers], need.astype(np.int64))
+    codes = rng.choice(20, size=int(lengths.sum()), p=BACKGROUND
+                       ).astype(np.uint8)
+    starts = np.concatenate([[0], np.cumsum(lengths)])
+    a = 0
+    for c, n in zip(carriers, per):
+        mine, span = picks[a:a + n], sizes[a:a + n]
+        a += n
+        cuts = np.sort(rng.integers(0, lengths[c] - span.sum() + 1, size=n))
+        offs = starts[c] + cuts + np.concatenate([[0], np.cumsum(span)[:-1]])
+        for p, o, n_p in zip(mine, offs, span):
+            codes[o:o + n_p] = emit(rng, models[p].match_scores)
+    return [codes[s:s + n] for s, n in zip(starts[:-1], lengths)]
+
+
+def emit(rng: np.random.Generator, scores: np.ndarray) -> np.ndarray:
+    """One sample of each match row's emissions (``scores``: negative
+    natural logs), in row order."""
+    cdf = np.cumsum(np.exp(-scores.astype(np.float64)), axis=1)
+    u = rng.random(scores.shape[0]) * cdf[:, -1]
+    return np.minimum((cdf < u[:, None]).sum(axis=1),
+                      scores.shape[1] - 1).astype(np.uint8)
+
+
 # ------------------------------------------------------------------ writers
 
-def _fmt_score(score: float) -> str:
-    return "      *" if math.isinf(score) else f"{score:.5f}"
+def _digits(values: np.ndarray, width: int, blank: bool = True
+            ) -> np.ndarray:
+    """(n, width) ASCII of whole numbers ``0 <= values < 10**width``,
+    right-aligned: "%{width}d" with ``blank``, else zero-padded."""
+    v = np.asarray(values, dtype=np.int64)
+    out = np.empty((v.shape[0], width), dtype=np.uint8)
+    for k in range(width - 1, -1, -1):
+        out[:, k] = 48 + v % 10
+        v = v // 10
+    if blank:
+        lead = (np.cumsum(out != ord("0"), axis=1) == 0)
+        lead[:, -1] = False
+        out[lead] = ord(" ")
+    return out
+
+
+def _scores_ascii(scores: np.ndarray) -> np.ndarray:
+    """(rows, 9 x card - 2) ASCII of each row's "%.5f" fields joined by two
+    blanks, for finite scores in [0, 10)."""
+    q = np.round(scores.astype(np.float64) * 1e5)
+    if not (np.isfinite(q).all() and q.min() >= 0 and q.max() < 10**6):
+        raise ValueError("amino scores must be finite and in [0, 10)")
+    rows, card = q.shape
+    d = _digits(q.reshape(-1), 6, blank=False).reshape(rows, card, 6)
+    out = np.full((rows, card, 9), ord(" "), dtype=np.uint8)
+    out[:, :, 0] = d[:, :, 0]
+    out[:, :, 1] = ord(".")
+    out[:, :, 2:7] = d[:, :, 1:]
+    return out.reshape(rows, card * 9)[:, :-2]
 
 
 def write_hmm(models: Sequence[Model], path: str) -> None:
-    """HMMER3/f text with the fields SSV reads (flat inserts and
-    transitions), as the port's ``write_hmm`` writes it."""
-    flat = "  ".join(["1.38629"] * 4)
+    """HMMER3/f text with the fields SSV reads, as the port's ``write_hmm``
+    writes it: flat transitions, match lines of "%.5f" scores (finite, in
+    [0, 10)). Nucleotide models are ``ALPH  DNA`` with flat inserts; amino
+    models ``ALPH  amino``, the 20 columns ``ACDEFGHIKLMNPQRSTVWY``, with
+    insert and COMPO lines of the background's negative natural logs. The
+    match lines are formatted in bulk: a Pfam-sized collection has
+    millions of rows."""
     trans = "  ".join(["0.01000"] * 7)
-    with open(path, "w") as out:
+    with open(path, "wb") as out:
         for m in models:
-            out.write("HMMER3/f [3.4 | havac_tpu]\n")
-            out.write(f"NAME  {m.name}\n")
-            out.write(f"LENG  {m.model_length}\n")
-            out.write(f"MAXL  {m.max_length}\n")
-            out.write("ALPH  DNA\n")
-            out.write("RF    no\nMM    no\nCONS  yes\nCS    no\nMAP   yes\n")
-            out.write("NSEQ  1\nEFFN  1.000000\nCKSUM 0\n")
-            for kind in ("MSV     ", "VITERBI ", "FORWARD "):
-                out.write(f"STATS LOCAL {kind} {m.msv_mu:9.4f} "
-                          f"{m.msv_lambda:8.5f}\n")
-            out.write("HMM     " + "     ".join(f"{c}    " for c in "ACGT")
-                      + "\n")
-            out.write("        " + "  ".join(
-                ["m->m", "m->i", "m->d", "i->m", "i->i", "d->m", "d->d"])
-                + "\n")
-            out.write(f"  COMPO   {flat}\n          {flat}\n"
-                      f"          {trans}\n")
-            for pos in range(m.model_length):
-                scores = "  ".join(_fmt_score(s) for s in m.match_scores[pos])
-                out.write(f"{pos + 1:7d}   {scores} {pos + 1:7d} x - - -\n"
-                          f"          {flat}\n          {trans}\n")
-            out.write("//\n")
+            if m.match_scores.shape[1] == 20:
+                letters, alph, flat = AMINO, "amino", _AMINO_FLAT
+            else:
+                letters, alph, flat = "ACGT", "DNA", "  ".join(
+                    ["1.38629"] * 4)
+            head = (
+                "HMMER3/f [3.4 | havac_tpu]\n"
+                f"NAME  {m.name}\nLENG  {m.model_length}\n"
+                f"MAXL  {m.max_length}\nALPH  {alph}\n"
+                "RF    no\nMM    no\nCONS  yes\nCS    no\nMAP   yes\n"
+                "NSEQ  1\nEFFN  1.000000\nCKSUM 0\n"
+                + "".join(f"STATS LOCAL {kind} {m.msv_mu:9.4f} "
+                          f"{m.msv_lambda:8.5f}\n"
+                          for kind in ("MSV     ", "VITERBI ", "FORWARD "))
+                + "HMM     " + "     ".join(f"{c}    " for c in letters)
+                + "\n        " + "  ".join(["m->m", "m->i", "m->d", "i->m",
+                                           "i->i", "d->m", "d->d"]) + "\n"
+                f"  COMPO   {flat}\n          {flat}\n          {trans}\n")
+            out.write(head.encode())
+            n = m.model_length
+            node = _digits(np.arange(1, n + 1), 7)
+            tail = f" x - - -\n          {flat}\n          {trans}\n"
+            out.write(np.concatenate([
+                node, np.full((n, 3), ord(" "), np.uint8),
+                _scores_ascii(m.match_scores),
+                np.full((n, 1), ord(" "), np.uint8), node,
+                np.tile(np.frombuffer(tail.encode(), np.uint8), (n, 1))],
+                axis=1).tobytes())
+            out.write(b"//\n")
 
 
-def write_fasta(path: str, records: Sequence[Tuple[str, np.ndarray]]) -> None:
-    """FASTA records of nucleotide codes (0..3), 80 columns a line."""
-    table = np.frombuffer(NUCLEOTIDES, dtype=np.uint8)
+def write_fasta(path: str, records: Sequence[Tuple[str, np.ndarray]],
+                letters: bytes = NUCLEOTIDES) -> None:
+    """FASTA records of codes (0..3 of ``ACGT``, or 0..19 of
+    :data:`AMINO_LETTERS`), 80 columns a line."""
+    table = np.frombuffer(letters, dtype=np.uint8)
     with open(path, "wb") as f:
         for name, codes in records:
             letters = table[codes]
@@ -288,35 +432,47 @@ def make_inputs(config: dict, traffic: dict, seed: int,
     files for ``seed`` into ``directory``.
 
     ``traffic["records"]["kind"]``: ``"chromosome"`` (each file one record
-    of ``length`` positions, drawn afresh) or ``"bins"`` (each file a genome
+    of ``length`` positions, drawn afresh), ``"bins"`` (each file a genome
     bin: stratified log-uniform ``bin_length``, filled with log-normal
     ``contig_length`` contigs cut at seed-drawn offsets from one
-    ``source_length`` sequence)."""
-    composition = traffic["composition"]
+    ``source_length`` sequence), both nucleotide, or ``"proteome"`` (each
+    file one proteome of stratified log-uniform ``proteins``, see
+    :func:`proteome`), for an amino collection."""
     coll = config["collection"]
+    amino = coll.get("alphabet", "dna") == "amino"
+    rec = traffic["records"]
+    if amino != (rec["kind"] == "proteome"):
+        raise ValueError(f"{rec['kind']!r} traffic does not search a "
+                         f"{coll.get('alphabet', 'dna')!r} collection")
     crng = rng_for(coll["seed"])
-    families = repeat_families(crng)
-    share = float(coll["repeat_model_share"])
-    models = synthetic_models(
-        crng, int(coll["model_positions"]), families,
-        int(round(1 / share)) if share else 0,
-        coll["model_length_range"], coll["match_probability"],
-        coll["msv_mu"], coll["msv_lambda"])
+    if amino:
+        families = None
+        models = amino_models(crng, coll)
+    else:
+        families = repeat_families(crng)
+        share = float(coll["repeat_model_share"])
+        models = synthetic_models(
+            crng, int(coll["model_positions"]), families,
+            int(round(1 / share)) if share else 0,
+            coll["model_length_range"], coll["match_probability"],
+            coll["msv_mu"], coll["msv_lambda"])
     hmm_path = os.path.join(directory, "models.hmm")
     write_hmm(models, hmm_path)
     inputs = Inputs(hmm_path, np.array([m.model_length for m in models],
-                                       dtype=np.int64))
-    del models
+                                       dtype=np.int64),
+                    card=20 if amino else 4)
     rng = rng_for(seed)
-    rec = traffic["records"]
     n_files = int(traffic["files"])
     if rec["kind"] == "chromosome":
+        del models
         for k in range(n_files):
-            seq = chromosome(rng, int(rec["length"]), composition, families)
+            seq = chromosome(rng, int(rec["length"]), traffic["composition"],
+                             families)
             _write(inputs, directory, k, [(f"chr{k}", seq)])
     elif rec["kind"] == "bins":
-        source = chromosome(rng, int(rec["source_length"]), composition,
-                            families)
+        del models
+        source = chromosome(rng, int(rec["source_length"]),
+                            traffic["composition"], families)
         sizes = bin_lengths(n_files, *rec["bin_length"])
         for k, i in enumerate(bin_order(rng, n_files)):
             lengths = contig_lengths(rng, int(sizes[i]), rec["contig_length"])
@@ -324,14 +480,22 @@ def make_inputs(config: dict, traffic: dict, seed: int,
             _write(inputs, directory, k,
                    [(f"bin{k}_contig{j}", source[o:o + n])
                     for j, (o, n) in enumerate(zip(offs, lengths))])
+    elif rec["kind"] == "proteome":
+        sizes = bin_lengths(n_files, *rec["proteins"])
+        for k, i in enumerate(bin_order(rng, n_files)):
+            proteins = proteome(rng, int(sizes[i]), rec, models)
+            _write(inputs, directory, k,
+                   [(f"proteome{k}_protein{j}", codes)
+                    for j, codes in enumerate(proteins)], AMINO_LETTERS)
     else:
         raise ValueError(f"unknown records kind {rec['kind']!r}")
     return inputs
 
 
-def _write(inputs: Inputs, directory: str, k: int, records) -> None:
+def _write(inputs: Inputs, directory: str, k: int, records,
+           letters: bytes = NUCLEOTIDES) -> None:
     path = os.path.join(directory, f"request{k:04d}.fa")
-    write_fasta(path, records)
+    write_fasta(path, records, letters)
     inputs.files.append(FastaFile(
         path, [name for name, _ in records],
         np.array([codes.shape[0] for _, codes in records], dtype=np.int64)))

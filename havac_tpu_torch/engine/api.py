@@ -93,8 +93,8 @@ class RunStats:
     # file), ``encode_wait`` and ``hits``; the sweep's ``stage``, the
     # pipeline's (`engine/pipeline.py`) or the mesh's phases. Each is a
     # span of `engine/trace.py`; ``sort`` and ``resolve`` are summed over
-    # the collector pool's threads. ``tail_segments``, a count, is the
-    # number of segments the tail placed.
+    # the collector pool's threads. Two are counts: ``tail_segments``, the
+    # segments the tail placed, and ``launches``, the chunks launched.
     pipeline_prof: Optional[Dict[str, float]] = None
     num_unverified: int = 0  # populated when verify_hits=True
     # Whether the native host core resolved this run's hits (False: the
@@ -192,6 +192,8 @@ class Havac:
         self.scores: Optional[np.ndarray] = None
         self.phmm_prefix: Optional[np.ndarray] = None
         self.database: Optional[SequenceDatabase] = None
+        # Seconds of the last load_phmm's halves: "parse" and "project".
+        self.load_prof: Dict[str, float] = {}
 
         self._state = HavacRunState.IDLE
         self._state_lock = threading.Lock()
@@ -213,9 +215,12 @@ class Havac:
     def load_phmm(self, src: Union[str, ProfileHmm, Sequence[ProfileHmm]],
                   is_text: bool = False) -> "Havac":
         """Load and reproject a pHMM collection: a path, .hmm text
-        (``is_text=True``), a ProfileHmm, or a sequence of them."""
+        (``is_text=True``), a ProfileHmm, or a sequence of them.
+        ``load_prof`` holds the seconds of the parse and the projection."""
+        self.load_prof = {"parse": 0.0, "project": 0.0}
         if isinstance(src, str):
-            models = read_hmm_text(src) if is_text else read_hmm(src)
+            with span("havac.load.parse", self.load_prof, "parse"):
+                models = read_hmm_text(src) if is_text else read_hmm(src)
         elif isinstance(src, ProfileHmm):
             models = [src]
         else:
@@ -252,15 +257,18 @@ class Havac:
         else:
             self.alphabet = "dna"
         self.models = models
-        self.scores = project_models(models, self.p_value)
+        with span("havac.load.project", self.load_prof, "project"):
+            self.scores = project_models(models, self.p_value)
         self.phmm_prefix = model_length_prefix_sums(models)
         self._warm_sweep = None
         self.reset_rows = None
         if self.isolate_models:
             self.reset_rows = np.zeros(self.scores.shape[0], dtype=bool)
             self.reset_rows[self.phmm_prefix[:-1]] = True
-        log.info("loaded %d models, %d total positions (p=%g)",
-                 len(models), self.scores.shape[0], self.p_value)
+        log.info("loaded %d models, %d total positions (p=%g): parse "
+                 "%.3f s, project %.3f s", len(models),
+                 self.scores.shape[0], self.p_value,
+                 self.load_prof["parse"], self.load_prof["project"])
         return self
 
     def load_sequence(self, src: Union[str, SequenceDatabase],

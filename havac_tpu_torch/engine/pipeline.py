@@ -155,7 +155,8 @@ class KeyedLaunches:
     retained inputs with a buffer of exactly that size (later chunks get
     room for 1.25x the count); :meth:`_resolve_chunk` sorts the keys and
     resolves them, in a collector pool. The host's time goes to ``prof``'s
-    ``dispatch`` (span ``havac.launch``), ``ready_wait`` and ``fetch``
+    ``dispatch`` (span ``havac.launch``, counted in ``launches``; a regrow's
+    relaunch is not), ``ready_wait`` and ``fetch``
     (``havac.pull``), ``regrow`` (``havac.regrow``), ``sort`` and
     ``resolve`` (``havac.sort``, ``havac.resolve``: thread-seconds summed
     over the pool) and ``resolve_wait`` (``havac.resolve_wait``). Each span
@@ -194,16 +195,18 @@ class KeyedLaunches:
                 torch.empty(1, dtype=torch.int64, pin_memory=True))
 
     def _enqueue(self, inputs: tuple, r0: int, lo: int,
-                 chunk: Tuple[int, int]) -> _Pending:
+                 chunk: Tuple[int, int], resets: int = 0) -> _Pending:
         """Launch one chunk: ``inputs`` = (symbols, scores, reset_rows,
         init_state, init_carry) on one device; (r0, lo) its first global
-        row and position; ``chunk`` its (column chunk, row chunk)."""
+        row and position; ``chunk`` its (column chunk, row chunk);
+        ``resets`` the model starts among its rows that reset the chain."""
         dev = inputs[0].device
-        L, P = inputs[0].shape[0], inputs[1].shape[0]
+        L, (P, card) = inputs[0].shape[0], inputs[1].shape
+        self.prof["launches"] += 1
         with span("havac.launch", self.prof, "dispatch",
                   request=self.request, column_chunk=chunk[0],
-                  row_chunk=chunk[1], symbols=L, rows=P,
-                  key_cap=self.key_cap):
+                  row_chunk=chunk[1], symbols=L, rows=P, card=card,
+                  resets=resets, key_cap=self.key_cap):
             out = ssv_cuda.SweepBuffers.empty(L, P, self.key_cap, dev)
             self._launch(inputs, r0, lo, out)
             host_keys = host_count = event = None
@@ -343,7 +346,7 @@ class PipelinedSweep(KeyedLaunches):
             ("stage", "dispatch", "gate_wait", "ready_wait", "fetch",
              "regrow", "sort", "resolve", "drain", "resolve_wait", "tail",
              "tail_merge", "tail_gather"), 0.0)
-        self.prof["tail_segments"] = 0
+        self.prof["tail_segments"] = self.prof["launches"] = 0
         with span("havac.stage", self.prof, "stage", request=request):
             self.device = torch.device(device)
             if self.device.type == "cuda":
@@ -368,8 +371,11 @@ class PipelinedSweep(KeyedLaunches):
                 np.ascontiguousarray(codes, dtype=np.uint8)).to(self.device)
             self._scores_dev: List[torch.Tensor] = []
             self._reset_dev: List[Optional[torch.Tensor]] = []
+            self._resets: List[int] = []  # reset rows a row chunk
             for ri in range(self.n_row):
                 r0, r1 = self.row_range(ri)
+                self._resets.append(0 if reset_rows is None else
+                                    int(np.count_nonzero(reset_rows[r0:r1])))
                 self._scores_dev.append(torch.from_numpy(
                     np.ascontiguousarray(scores[r0:r1], dtype=np.int8)
                 ).to(self.device))
@@ -466,7 +472,8 @@ class PipelinedSweep(KeyedLaunches):
                                          device=dev)
                 p = self._enqueue((self._codes_dev[lo:hi],
                                    self._scores_dev[ri], self._reset_dev[ri],
-                                   istate, icarry), r0, lo, (ci, ri))
+                                   istate, icarry), r0, lo, (ci, ri),
+                                  self._resets[ri])
                 pend.append(p)
                 with span(None, self.prof, "gate_wait"):
                     while len(pend) >= self.lookahead:

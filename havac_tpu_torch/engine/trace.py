@@ -8,12 +8,20 @@ a device idle gap by the host event overlapping it most finds the phase
 itself. A span without a name only counts; ``gate_wait``, ``drain``,
 ``tail`` and the sweep's wall enclose named spans that way.
 
-Every counter of ``pipeline_prof`` holds seconds but one:
+Every counter of ``pipeline_prof`` holds seconds but two, which count:
 ``tail_segments`` counts the (chunk, row) segments that the tail placed by
 the chunks' rectangles (`engine/pipeline.py` `_merge_resolved`; 0 where it
 merged by comparison), and is also the ``segments`` argument of the
 ``havac.tail.gather`` span. ``havac.tail.merge`` times the plan of that
 placement, or the comparison merge, and ``havac.tail.gather`` the copy.
+``launches`` counts the ``havac.launch`` spans, whose seconds are
+``dispatch``; a regrow's relaunch runs under ``havac.regrow`` and is not
+counted. Each launch carries its alphabet's size (``card``) and the
+number of model starts among its rows that reset the chain (``resets``).
+
+``Havac.load_phmm`` times its two halves apart from any search, into
+``Havac.load_prof``: ``parse`` (span ``havac.load.parse``, the ``.hmm``
+read) and ``project`` (``havac.load.project``, the projection).
 
 Spans are recorded whenever a ``torch.profiler`` session runs, on every
 thread it profiles; nothing else turns them on. The guard is

@@ -57,7 +57,8 @@ class _Front:
     exchange: SeamExchange
     devices: List[torch.device]  # one a local seq shard, in order
     state: List[torch.Tensor]  # the row state of each local seq shard
-    staged: dict  # {device: [(scores, reset rows) a row chunk]}
+    # {device: [(scores, reset rows, their count) a row chunk]}
+    staged: dict
 
     @property
     def schedule(self) -> Schedule:
@@ -78,7 +79,8 @@ class SwarDistributedSweep(KeyedLaunches):
     by span (`engine/trace.py`), to ``sync`` (``havac.sync``: the
     processes' agreement on abort), ``seam`` (``havac.seam``: the
     exchange's host copies and waits) and, as on the main path,
-    ``dispatch`` (``havac.launch``, one a shard and step), ``ready_wait``
+    ``dispatch`` (``havac.launch``, one a shard and step, counted in
+    ``launches``), ``ready_wait``
     (waiting on the device), ``fetch``, ``regrow``, ``sort``, ``resolve``,
     ``resolve_wait`` and ``tail`` (``tail_merge`` and ``tail_gather``),
     and counts the tail's placed segments in ``tail_segments``.
@@ -120,7 +122,7 @@ class SwarDistributedSweep(KeyedLaunches):
             ("dispatch", "sync", "ready_wait", "fetch", "regrow", "sort",
              "resolve", "seam", "resolve_wait", "tail", "tail_merge",
              "tail_gather"), 0.0)
-        self.prof["tail_segments"] = 0
+        self.prof["tail_segments"] = self.prof["launches"] = 0
         self.launches = 0
         self.steps = 0
         self.groups: List[Tuple[int, int, int]] = []
@@ -149,8 +151,8 @@ class SwarDistributedSweep(KeyedLaunches):
 
     def _staged(self, scores: np.ndarray, reset_rows, row0: int,
                 schedule: Schedule, devices: Sequence[torch.device]):
-        """Each row chunk's scores and reset rows of the group whose first
-        row is ``row0``, once per device."""
+        """Each row chunk's scores, reset rows and number of reset rows of
+        the group whose first row is ``row0``, once per device."""
         out = {}
         for dev in dict.fromkeys(devices):
             chunks = []
@@ -161,7 +163,8 @@ class SwarDistributedSweep(KeyedLaunches):
                 rr = (None if reset_rows is None else torch.from_numpy(
                     np.ascontiguousarray(reset_rows[r0:r1], dtype=np.int32)
                 ).to(dev))
-                chunks.append((sc, rr))
+                chunks.append((sc, rr, 0 if reset_rows is None else
+                               int(np.count_nonzero(reset_rows[r0:r1]))))
             out[dev] = chunks
         return out
 
@@ -332,11 +335,11 @@ class SwarDistributedSweep(KeyedLaunches):
                 f = fronts[j]
                 i = k - f.shards.start
                 dev = f.devices[i]
-                sc, rr = f.staged[dev][s]
+                sc, rr, resets = f.staged[dev][s]
                 p = self._enqueue((self._codes_dev[k, dev], sc, rr,
                                    f.state[i], seam),
                                   f.row0 + f.schedule.rows(s)[0], k * W,
-                                  (k, s))
+                                  (k, s), resets)
                 f.state[i] = p.out.final_state
                 pend.append((t, p))
                 return p.out.final_carry

@@ -85,7 +85,9 @@ def test_scan_files_matches_jax_scan_files(dna, strand):
 def test_scan_files_amino_matches_per_file_runs(tmp_path):
     """Each file is encoded in the models' alphabet: the port's amino scan
     equals a JAX run per file (whose load_sequence does take the alphabet;
-    amino runs need the JAX SWAR kernel, here in interpret mode)."""
+    amino runs need the JAX SWAR kernel, here in interpret mode) over the
+    port's projected scores, which take HMMER's amino background where the
+    JAX package takes 2 bits a residue."""
     models, _ = generate_planted_fixture(seed=5, model_length=30,
                                          sequence_length=10, num_models=2,
                                          alphabet="amino")
@@ -105,7 +107,9 @@ def test_scan_files_amino_matches_per_file_runs(tmp_path):
     for path, hits in got:
         ref = JaxHavac(p_value=0.02, config=swar, backend="pallas_interpret",
                        chunk_symbols=3072, chunk_rows=60)
-        ref.load_phmm(models).load_sequence(path).run()
+        ref.load_phmm(models)
+        ref.scores = ours.scores
+        ref.load_sequence(path).run()
         assert_same_hits(hits, ref.hits())
 
 

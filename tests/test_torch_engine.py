@@ -135,19 +135,25 @@ def test_isolate_models_matches_jax():
 def test_amino_matches_jax():
     """Cardinality-20 models against the JAX main path: the pipelined SWAR
     kernel with its native key-form hits (amino needs it), at uneven port
-    cuts."""
+    cuts. The JAX engine sweeps the port's projected scores: the port
+    scores amino residues against HMMER's background
+    (`tests/test_torch_amino_null.py` holds that projection to the plain
+    reference), the JAX package against 2 bits a residue."""
     models, records = generate_planted_fixture(
         seed=5, model_length=30, sequence_length=2500, num_models=2,
         alphabet="amino")
     fasta = fasta_text(records)
+    ours = port(p_value=0.02, pad_multiple=3072, chunk_symbols=1000,
+                chunk_rows=25)
+    ours.load_phmm(port_models(models)).load_sequence(fasta, is_text=True)
     cfg = SsvKernelConfig(block_width=3072, rows_per_strip=30, packing=3,
                           interpret=True)
     ref = JaxHavac(p_value=0.02, config=cfg, backend="pallas_interpret",
                    chunk_symbols=3072, chunk_rows=60)
-    ref.load_phmm(models).load_sequence(fasta, is_text=True).run()
-    ours = port(p_value=0.02, pad_multiple=3072, chunk_symbols=1000,
-                chunk_rows=25)
-    ours.load_phmm(port_models(models)).load_sequence(fasta, is_text=True).run()
+    ref.load_phmm(models)
+    ref.scores = ours.scores
+    ref.load_sequence(fasta, is_text=True).run()
+    ours.run()
     assert ours.alphabet == "amino" and ours.database.alphabet == "amino"
     assert len(ours.hits()) > 0
     assert_same_run(ours, ref)

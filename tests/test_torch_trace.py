@@ -28,6 +28,8 @@ CONSUMER = {"havac.encode_wait", "havac.hits"}
 WORKER = {"havac.stage", "havac.launch", "havac.pull", "havac.resolve_wait",
           "havac.tail.merge", "havac.tail.gather"}
 POOL = {"havac.sort", "havac.resolve"}
+# The caller's load_phmm, before any request.
+LOAD = {"havac.load.parse", "havac.load.project"}
 NEW_METRICS = ("api.encode_wait_share", "api.stage_share",
                "pipeline.resolve_wait_share")
 
@@ -82,10 +84,14 @@ def test_scan_spans_in_an_all_threads_trace(files, tmp_path, monkeypatch):
     out = str(tmp_path / "trace.json")
     trace.export_chrome_trace(prof, out)
     ev = spans(out)
+    consumer = threading.get_native_id()
+    load = [e for e in ev if e["name"] in LOAD]
+    assert sorted(e["name"] for e in load) == sorted(LOAD)
+    assert {e["tid"] for e in load} == {consumer}
+    ev = [e for e in ev if e["name"] not in LOAD]
     by_thread = defaultdict(set)
     for e in ev:
         by_thread[e["tid"]].add(e["name"])
-    consumer = threading.get_native_id()
     assert by_thread[consumer] == CONSUMER
     (p,) = producer
     assert by_thread[p] == PRODUCER
@@ -249,3 +255,74 @@ def test_api_shares_within_the_time_outside_the_sweep(files):
     outside = metric_reader("api.outside_sweep_share")(w)
     assert (shares["api.encode_wait_share"] + shares["api.stage_share"]
             + hits_share) <= outside
+
+
+def test_launches_count_the_launch_spans(files):
+    """``launches`` counts the ``havac.launch`` spans of a chunked run, one
+    a (column, row) chunk: a regrow's relaunch, under ``havac.regrow``, is
+    not counted again."""
+    hmm, paths = files
+    eng = Havac(p_value=0.05, device="cpu").load_phmm(hmm).load_sequence(
+        paths[0])
+    sweep = PipelinedSweep(eng._codes(), eng.scores, 700, 40, "cpu",
+                           eng.database, eng.phmm_prefix, key_cap=1)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sweep.run()
+    names = [e.name for e in prof.events() if e.name.startswith("havac.")]
+    assert sweep.regrows >= 1 and names.count("havac.regrow") == sweep.regrows
+    assert sweep.prof["launches"] == names.count("havac.launch") == (
+        sweep.n_col * sweep.n_row) > 1
+    runs, _ = scan(hmm, paths)
+    for _, _, st in runs:
+        geo = st.chunk_geometry
+        assert st.pipeline_prof["launches"] == st.num_chunks == (
+            geo["n_col"] * geo["n_row"])
+
+
+@pytest.mark.parametrize("alphabet,isolate", [("amino", True),
+                                              ("dna", False)])
+def test_launch_args_card_and_resets(tmp_path, monkeypatch, alphabet,
+                                     isolate):
+    """Each ``havac.launch`` names its alphabet's size and the model starts
+    among its rows that reset the chain: on an isolated run the resets of
+    a column chunk's row chunks add up to the number of models."""
+    models, records = generate_planted_fixture(
+        seed=83, model_length=30, sequence_length=2_400, num_models=5,
+        alphabet=alphabet)
+    eng = Havac(p_value=0.05, device="cpu", isolate_models=isolate)
+    eng.load_phmm(models).load_sequence(
+        "".join(f">{n}\n{s}\n" for n, s in records), is_text=True)
+    sweep = PipelinedSweep(eng._codes(), eng.scores, 900, 37, "cpu",
+                           eng.database, eng.phmm_prefix,
+                           reset_rows=eng.reset_rows)
+    assert sweep.n_col >= 2 and sweep.n_row >= 3
+    monkeypatch.setattr(trace, "_ARGS", [])
+    with trace.profiler([ProfilerActivity.CPU]) as prof:
+        sweep.run()
+    out = str(tmp_path / "trace.json")
+    trace.export_chrome_trace(prof, out)
+    launches = [e["args"] for e in spans(out) if e["name"] == "havac.launch"]
+    assert len(launches) == sweep.prof["launches"] == sweep.n_col * sweep.n_row
+    card = 20 if alphabet == "amino" else 4
+    assert {a["card"] for a in launches} == {card}
+    per_column = Counter()
+    for a in launches:
+        per_column[a["column_chunk"]] += a["resets"]
+    assert per_column == Counter({c: len(models) if isolate else 0
+                                  for c in range(sweep.n_col)})
+
+
+def test_load_prof_times_parse_and_project(files, tmp_path):
+    """``load_phmm`` times the ``.hmm`` parse and the projection apart, in
+    ``load_prof``, and marks both in a profiler's trace; models handed in
+    whole are not parsed."""
+    hmm, _ = files
+    eng = Havac(p_value=0.05, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        eng.load_phmm(hmm)
+    assert set(eng.load_prof) == {"parse", "project"}
+    assert eng.load_prof["parse"] > 0 and eng.load_prof["project"] > 0
+    names = {e.name for e in prof.events()}
+    assert {"havac.load.parse", "havac.load.project"} <= names
+    eng.load_phmm(list(eng.models))
+    assert eng.load_prof["parse"] == 0 and eng.load_prof["project"] > 0

@@ -41,9 +41,19 @@
 //     e3 = m3 - m2 - m1 + m0): one 8-byte shared load, one AND and three
 //     IMADs a word, exact modulo 2^32 (PERF.md: the inline IMAD match beat
 //     both match-precompute designs on this card).
-//   other cards (<= 32): the staged entry holds the three codes, and the
-//     match is three conflict-free reads of the row's tables of biased
-//     scores pre-shifted to each field.
+//   other cards (<= 32): the staged entry holds, in byte f, 4 x field f's
+//     code: the byte offset of its entry in field f's table of the row's
+//     biased scores pre-shifted to the field. One 4-byte shared load, one
+//     LOP3, one PRMT and one shift (or LEA.HI) extract the three offsets,
+//     and the three table reads are conflict-free (a 128-byte table a field
+//     and row), each at its offset plus the window's base in a uniform
+//     register plus the row's and field's base as an immediate: 15.9 SASS
+//     a word and row and four shared wavefronts a warp, word and row, where
+//     the three codes of an 8-byte entry took 10-bit extraction and address
+//     arithmetic a field (21.6 and five; PERF.md).
+// Reset rows (a model start, whose input is 0): one ballot a window gathers
+// its reset rows into a warp-uniform mask, and a window without one, most of
+// them, runs its rows with no reset test.
 // Hits: each row ORs w & (bit 9 of every field) into one word; every kWin
 // rows one __any_sync asks the warp, and only a warp that saw a hit replays
 // the window from its saved state, decoding hits row by row and appending
@@ -92,6 +102,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #ifdef HV_BLOCK_STAMPS
 // Only in havac_tpu_torch/tools/dump_probe.py's builds, never the port's
@@ -158,14 +170,18 @@ constexpr bool kByteStores = false;
 constexpr int kRows = 64;               // model rows a staged tile
 constexpr int kWin = 16;                // rows a hit window
 
+// Bytes from one row's first table to the next (other cards).
+constexpr int kTabRow = 3 * kMaxCard * 4;
+
 template <bool kCard4, int kT, int kW>
 struct Tile {
-  // card 4: {b0, b1} planes; other cards: .x = the three codes
-  uint2 sym[kT * kW + kRows];
+  // card 4: {b0, b1} planes; other cards: byte f = 4 x (code f & 63), the
+  // byte offset of the code's entry in field f's table
+  typename std::conditional<kCard4, uint2, uint32_t>::type sym[kT * kW + kRows];
   int4 row[kCard4 ? kRows : 1];  // card 4: {c, e1, e2, e3}
-  // other cards: [k][f][code] = (score + 256) << 10 f; the slack keeps an
-  // (invalid) code up to 255 inside the array
-  uint32_t tab[kCard4 ? 1 : kRows * 3 * kMaxCard + 256];
+  // other cards: [k][f][code] = (score + 256) << 10 f; the slack keeps any
+  // code (6 bits of it staged) inside the array
+  uint32_t tab[kCard4 ? 1 : kRows * 3 * kMaxCard + 64];
   int32_t reset[kRows];
 };
 
@@ -178,24 +194,32 @@ struct Fields {
 template <bool kCard4, int kT, int kW>
 __device__ __forceinline__ uint32_t match_word(const Tile<kCard4, kT, kW>& t,
                                                int v, int k) {
-  const uint2 p = t.sym[v + k];
-  if (kCard4) {
+  if constexpr (kCard4) {
+    const uint2 p = t.sym[v + k];
     const int4 r = t.row[k];
     return (uint32_t)r.x + p.x * (uint32_t)r.y + p.y * (uint32_t)r.z +
            (p.x & p.y) * (uint32_t)r.w;
   } else {
-    const uint32_t* tab = t.tab + k * 3 * kMaxCard;
-    return tab[p.x & kField] + tab[kMaxCard + ((p.x >> 10) & kField)] +
-           tab[2 * kMaxCard + (p.x >> 20)];
+    // Each field's byte is its entry's offset in its table: one LOP3, one
+    // PRMT and one shift extract them; the table bases need no arithmetic a
+    // word (the window's is uniform, the row's and field's immediate).
+    const uint32_t p = t.sym[v + k];
+    const char* tab = reinterpret_cast<const char*>(t.tab) + k * kTabRow;
+    auto at = [tab](uint32_t off) {
+      return *reinterpret_cast<const uint32_t*>(tab + off);
+    };
+    return at(p & 0xFFu) + at(4 * kMaxCard + __byte_perm(p, 0, 0x4441)) +
+           at(8 * kMaxCard + (p >> 16));
   }
 }
 
 // One row of one word: the new state; `hit` gets the live fields' bit 9,
-// `lm` (kMask only) the live fields' 10-bit masks.
+// `lm` (kMask only) the live fields' 10-bit masks. `rz` (kReset only): the
+// row is a reset row, whose input is 0.
 template <bool kCard4, bool kReset, bool kMask, int kT, int kW>
 __device__ __forceinline__ uint32_t row_word(uint32_t st,
                                              const Tile<kCard4, kT, kW>& t,
-                                             int v, int k, int j,
+                                             int v, int k, int j, bool rz,
                                              const Fields& g,
                                              const int32_t* init_carry,
                                              uint32_t& hit, uint32_t& lm) {
@@ -211,7 +235,7 @@ __device__ __forceinline__ uint32_t row_word(uint32_t st,
     }
   }
   uint32_t in = st;
-  if (kReset && t.reset[k]) in = 0;
+  if (kReset && rz) in = 0;
   const uint32_t w = in + match_word<kCard4, kT, kW>(t, v, k);
   const uint32_t t9 = w >> 9;
   const uint32_t keep = (w >> 8) & ~t9 & kFM;
@@ -330,9 +354,14 @@ __device__ __forceinline__ void stage(Tile<kCard4, kT, kW>& t, const Sweep& a,
 #pragma unroll
     for (int f = 0; f < 3; ++f) {
       const long long i = w0 + x + (long long)f * kV;
-      if (i >= 0 && i < a.L) p |= (uint32_t)a.symbols[i] << (10 * f);
+      if (i >= 0 && i < a.L)
+        p |= kCard4 ? (uint32_t)a.symbols[i] << (10 * f)
+                    : ((uint32_t)a.symbols[i] & 63u) << (8 * f + 2);
     }
-    t.sym[x] = kCard4 ? make_uint2(p & kFM, (p >> 1) & kFM) : make_uint2(p, 0);
+    if constexpr (kCard4)
+      t.sym[x] = make_uint2(p & kFM, (p >> 1) & kFM);
+    else
+      t.sym[x] = p;
   }
   const int8_t* src = a.scores + (long long)j0 * a.card;
   if (kCard4) {
@@ -368,6 +397,61 @@ __device__ __forceinline__ void stage_word(uint8_t* row, uint32_t st,
       row[f * kT * kW + w * kT + threadIdx.x] = (uint8_t)(st >> (10 * f));
 }
 
+// The rows of one hit window, rows k0 .. k0 + n - 1 of the tile (all kWin
+// of them unrolled when n == kWin): the state, the hit bits into `acc`, and
+// in the dump each row's live fields into `buf` (byte stores: the dump
+// itself, from a.dump + gpos; `gpos` advances a row at a time). kTest: bit r
+// of `rm` marks row k0 + r a reset row; without it the rows run no reset
+// test.
+template <bool kCard4, bool kReset, bool kMask, int kT, int kW, bool kDump,
+          bool kTest, typename Buf>
+__device__ __forceinline__ void window_rows(uint32_t (&st)[kW],
+                                            uint32_t (&acc)[kW],
+                                            const Tile<kCard4, kT, kW>& t,
+                                            Buf& buf, const Sweep& a,
+                                            const Fields (&g)[kW],
+                                            long long& gpos, int j0, int k0,
+                                            int n, uint32_t rm) {
+  const int tid = threadIdx.x;
+  if (n == kWin) {
+#pragma unroll
+    for (int r = 0; r < kWin; ++r) {
+      const bool rz = kTest && ((rm >> r) & 1u);
+#pragma unroll
+      for (int w = 0; w < kW; ++w) {
+        uint32_t h, lm;
+        st[w] = row_word<kCard4, kReset, kMask, kT, kW>(
+            st[w], t, w * kT + tid, k0 + r, j0 + k0 + r, rz, g[w],
+            a.init_carry, h, lm);
+        acc[w] |= h;
+        if (kDump)
+          stage_word<kMask, kT, kW>(
+              kByteStores ? a.dump + gpos : &buf[r][(int)(gpos & 15)], st[w],
+              lm, w);
+      }
+      if (kDump) gpos += a.L + 1;
+    }
+  } else {
+#pragma unroll 1
+    for (int r = 0; r < n; ++r) {
+      const bool rz = kTest && ((rm >> r) & 1u);
+#pragma unroll
+      for (int w = 0; w < kW; ++w) {
+        uint32_t h, lm;
+        st[w] = row_word<kCard4, kReset, kMask, kT, kW>(
+            st[w], t, w * kT + tid, k0 + r, j0 + k0 + r, rz, g[w],
+            a.init_carry, h, lm);
+        acc[w] |= h;
+        if (kDump)
+          stage_word<kMask, kT, kW>(
+              kByteStores ? a.dump + gpos : &buf[r][(int)(gpos & 15)], st[w],
+              lm, w);
+      }
+      if (kDump) gpos += a.L + 1;
+    }
+  }
+}
+
 // The hit windows of one staged tile (rows j0 .. j0 + nrows - 1), with the
 // per-field live masks where kMask.
 template <bool kCard4, bool kReset, bool kMask, int kT, int kW, bool kDump>
@@ -391,41 +475,18 @@ __device__ __forceinline__ void tile_rows(uint32_t (&st)[kW],
     // there).
     auto& buf = ds.row[win & 1];
     long long gpos = (long long)(j0 + k0) * (a.L + 1) + d0 + a.skew;
-    if (n == kWin) {
-#pragma unroll
-      for (int r = 0; r < kWin; ++r) {
-#pragma unroll
-        for (int w = 0; w < kW; ++w) {
-          uint32_t h, lm;
-          st[w] = row_word<kCard4, kReset, kMask, kT, kW>(
-              st[w], t, w * kT + tid, k0 + r, j0 + k0 + r, g[w], a.init_carry,
-              h, lm);
-          acc[w] |= h;
-          if (kDump)
-            stage_word<kMask, kT, kW>(
-                kByteStores ? a.dump + gpos : &buf[r][(int)(gpos & 15)], st[w],
-                lm, w);
-        }
-        if (kDump) gpos += a.L + 1;
-      }
-    } else {
-#pragma unroll 1
-      for (int r = 0; r < n; ++r) {
-#pragma unroll
-        for (int w = 0; w < kW; ++w) {
-          uint32_t h, lm;
-          st[w] = row_word<kCard4, kReset, kMask, kT, kW>(
-              st[w], t, w * kT + tid, k0 + r, j0 + k0 + r, g[w], a.init_carry,
-              h, lm);
-          acc[w] |= h;
-          if (kDump)
-            stage_word<kMask, kT, kW>(
-                kByteStores ? a.dump + gpos : &buf[r][(int)(gpos & 15)], st[w],
-                lm, w);
-        }
-        if (kDump) gpos += a.L + 1;
-      }
-    }
+    // The window's reset rows (bit r: row k0 + r), the same in every lane:
+    // a window without a model start runs its rows without the test.
+    uint32_t rm = 0;
+    if (kReset)
+      rm = __ballot_sync(0xffffffffu,
+                         (tid & 31) < n && t.reset[k0 + (tid & 31)] != 0);
+    if (kReset && rm != 0)
+      window_rows<kCard4, kReset, kMask, kT, kW, kDump, true>(
+          st, acc, t, buf, a, g, gpos, j0, k0, n, rm);
+    else
+      window_rows<kCard4, kReset, kMask, kT, kW, kDump, false>(
+          st, acc, t, buf, a, g, gpos, j0, k0, n, 0);
     if (kDump && !kByteStores) {
       // The staged rows become visible to the bulk copies (async proxy);
       // the previous window's copies, which read the other buffer, have
@@ -451,10 +512,11 @@ __device__ __forceinline__ void tile_rows(uint32_t (&st)[kW],
 #pragma unroll 1
       for (int r = 0; r < n; ++r) {
         uint32_t h[kW], lm;
+        const bool rz = kReset && ((rm >> r) & 1u);
 #pragma unroll
         for (int w = 0; w < kW; ++w)
           saved[w] = row_word<kCard4, kReset, kMask, kT, kW>(
-              saved[w], t, w * kT + tid, k0 + r, j0 + k0 + r, g[w],
+              saved[w], t, w * kT + tid, k0 + r, j0 + k0 + r, rz, g[w],
               a.init_carry, h[w], lm);
         emit<kW>(h, g, j0 + k0 + r, a);
       }

@@ -93,8 +93,9 @@ class RunStats:
     # file), ``encode_wait`` and ``hits``; the sweep's ``stage``, the
     # pipeline's (`engine/pipeline.py`) or the mesh's phases. Each is a
     # span of `engine/trace.py`; ``sort`` and ``resolve`` are summed over
-    # the collector pool's threads. Two are counts: ``tail_segments``, the
-    # segments the tail placed, and ``launches``, the chunks launched.
+    # the collector pool's threads. Three are counts: ``tail_segments``,
+    # the segments the tail placed, ``launches``, the chunks launched, and
+    # ``reset_windows``, their hit windows that hold a model start.
     pipeline_prof: Optional[Dict[str, float]] = None
     num_unverified: int = 0  # populated when verify_hits=True
     # Whether the native host core resolved this run's hits (False: the

@@ -143,6 +143,21 @@ class ChunkHits:
     row_offs: Optional[np.ndarray] = None
 
 
+def reset_counts(reset_rows: Optional[np.ndarray]) -> Tuple[int, int]:
+    """A launch's reset rows (model starts) and the hit windows that hold
+    one: ``ssv_cuda.WINDOW_ROWS`` rows from the launch's first row, aligned
+    as an interior block's tiles are. Only those windows run the kernel's
+    per-row reset test."""
+    if reset_rows is None:
+        return 0, 0
+    r = np.asarray(reset_rows) != 0
+    win = ssv_cuda.WINDOW_ROWS
+    padded = np.zeros(-(-r.size // win) * win, bool)
+    padded[:r.size] = r
+    return (int(np.count_nonzero(r)),
+            int(np.count_nonzero(padded.reshape(-1, win).any(axis=1))))
+
+
 class KeyedLaunches:
     """Sweep-kernel launches whose hit keys cross to the host and are
     resolved there: what the pipelined sweep and the mesh sweep
@@ -156,7 +171,8 @@ class KeyedLaunches:
     room for 1.25x the count); :meth:`_resolve_chunk` sorts the keys and
     resolves them, in a collector pool. The host's time goes to ``prof``'s
     ``dispatch`` (span ``havac.launch``, counted in ``launches``; a regrow's
-    relaunch is not), ``ready_wait`` and ``fetch``
+    relaunch is not; its hit windows with a reset row are summed in
+    ``reset_windows``), ``ready_wait`` and ``fetch``
     (``havac.pull``), ``regrow`` (``havac.regrow``), ``sort`` and
     ``resolve`` (``havac.sort``, ``havac.resolve``: thread-seconds summed
     over the pool) and ``resolve_wait`` (``havac.resolve_wait``). Each span
@@ -195,18 +211,22 @@ class KeyedLaunches:
                 torch.empty(1, dtype=torch.int64, pin_memory=True))
 
     def _enqueue(self, inputs: tuple, r0: int, lo: int,
-                 chunk: Tuple[int, int], resets: int = 0) -> _Pending:
+                 chunk: Tuple[int, int],
+                 resets: Tuple[int, int] = (0, 0)) -> _Pending:
         """Launch one chunk: ``inputs`` = (symbols, scores, reset_rows,
         init_state, init_carry) on one device; (r0, lo) its first global
         row and position; ``chunk`` its (column chunk, row chunk);
-        ``resets`` the model starts among its rows that reset the chain."""
+        ``resets`` its :func:`reset_counts`, the model starts among its
+        rows that reset the chain and the hit windows that hold one."""
         dev = inputs[0].device
         L, (P, card) = inputs[0].shape[0], inputs[1].shape
         self.prof["launches"] += 1
+        self.prof["reset_windows"] += resets[1]
         with span("havac.launch", self.prof, "dispatch",
                   request=self.request, column_chunk=chunk[0],
                   row_chunk=chunk[1], symbols=L, rows=P, card=card,
-                  resets=resets, key_cap=self.key_cap):
+                  resets=resets[0], reset_windows=resets[1],
+                  key_cap=self.key_cap):
             out = ssv_cuda.SweepBuffers.empty(L, P, self.key_cap, dev)
             self._launch(inputs, r0, lo, out)
             host_keys = host_count = event = None
@@ -347,6 +367,7 @@ class PipelinedSweep(KeyedLaunches):
              "regrow", "sort", "resolve", "drain", "resolve_wait", "tail",
              "tail_merge", "tail_gather"), 0.0)
         self.prof["tail_segments"] = self.prof["launches"] = 0
+        self.prof["reset_windows"] = 0
         with span("havac.stage", self.prof, "stage", request=request):
             self.device = torch.device(device)
             if self.device.type == "cuda":
@@ -371,11 +392,12 @@ class PipelinedSweep(KeyedLaunches):
                 np.ascontiguousarray(codes, dtype=np.uint8)).to(self.device)
             self._scores_dev: List[torch.Tensor] = []
             self._reset_dev: List[Optional[torch.Tensor]] = []
-            self._resets: List[int] = []  # reset rows a row chunk
+            # reset rows and hit windows with one, a row chunk
+            self._resets: List[Tuple[int, int]] = []
             for ri in range(self.n_row):
                 r0, r1 = self.row_range(ri)
-                self._resets.append(0 if reset_rows is None else
-                                    int(np.count_nonzero(reset_rows[r0:r1])))
+                self._resets.append(reset_counts(
+                    None if reset_rows is None else reset_rows[r0:r1]))
                 self._scores_dev.append(torch.from_numpy(
                     np.ascontiguousarray(scores[r0:r1], dtype=np.int8)
                 ).to(self.device))

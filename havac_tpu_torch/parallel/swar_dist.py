@@ -39,7 +39,8 @@ import torch
 from havac_tpu_torch.engine.pipeline import (FIRST_KEY_CAP, LOOKAHEAD,
                                              ChunkHits, KeyedLaunches,
                                              _merge_resolved, _POS_MASK,
-                                             keys_from_pairs, raw_pairs)
+                                             keys_from_pairs, raw_pairs,
+                                             reset_counts)
 from havac_tpu_torch.engine.trace import span
 from havac_tpu_torch.hits.decode import ResolvedHits
 from havac_tpu_torch.ops import ssv_cuda
@@ -80,7 +81,8 @@ class SwarDistributedSweep(KeyedLaunches):
     processes' agreement on abort), ``seam`` (``havac.seam``: the
     exchange's host copies and waits) and, as on the main path,
     ``dispatch`` (``havac.launch``, one a shard and step, counted in
-    ``launches``), ``ready_wait``
+    ``launches``, its hit windows with a reset row in ``reset_windows``),
+    ``ready_wait``
     (waiting on the device), ``fetch``, ``regrow``, ``sort``, ``resolve``,
     ``resolve_wait`` and ``tail`` (``tail_merge`` and ``tail_gather``),
     and counts the tail's placed segments in ``tail_segments``.
@@ -123,6 +125,7 @@ class SwarDistributedSweep(KeyedLaunches):
              "resolve", "seam", "resolve_wait", "tail", "tail_merge",
              "tail_gather"), 0.0)
         self.prof["tail_segments"] = self.prof["launches"] = 0
+        self.prof["reset_windows"] = 0
         self.launches = 0
         self.steps = 0
         self.groups: List[Tuple[int, int, int]] = []
@@ -151,8 +154,9 @@ class SwarDistributedSweep(KeyedLaunches):
 
     def _staged(self, scores: np.ndarray, reset_rows, row0: int,
                 schedule: Schedule, devices: Sequence[torch.device]):
-        """Each row chunk's scores, reset rows and number of reset rows of
-        the group whose first row is ``row0``, once per device."""
+        """Each row chunk's scores, reset rows and
+        :func:`~havac_tpu_torch.engine.pipeline.reset_counts` of the group
+        whose first row is ``row0``, once per device."""
         out = {}
         for dev in dict.fromkeys(devices):
             chunks = []
@@ -163,8 +167,8 @@ class SwarDistributedSweep(KeyedLaunches):
                 rr = (None if reset_rows is None else torch.from_numpy(
                     np.ascontiguousarray(reset_rows[r0:r1], dtype=np.int32)
                 ).to(dev))
-                chunks.append((sc, rr, 0 if reset_rows is None else
-                               int(np.count_nonzero(reset_rows[r0:r1]))))
+                chunks.append((sc, rr, reset_counts(
+                    None if reset_rows is None else reset_rows[r0:r1])))
             out[dev] = chunks
         return out
 

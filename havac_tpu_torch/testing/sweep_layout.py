@@ -7,21 +7,28 @@ diagonals ``d0 + v``, ``d0 + V + v`` and ``d0 + 2V + v`` in fields 0, 1
 and 2 (the split-block layout of the JAX package's ``pack_symbols`` /
 ``pack_state`` with ``W3 = V``), so a diagonal's state never leaves its
 field and no row rolls the words. Per tile of ``rows`` model rows the block
-stages one packed symbol word per window position, ``sym3[x] = s(w0 + x) |
-s(w0 + V + x) << 10 | s(w0 + 2V + x) << 20`` (0 outside the sequence), and
-each row reads ``sym3[v + k]``. The match word is built
+stages one entry per window position, and each row reads entry ``v + k``.
+The entry and the match word are
 
-  * for card 4 from the code-bit planes ``b0 = sym3 & FM`` and
-    ``b1 = (sym3 >> 1) & FM``: ``c + b0 e1 + b1 e2 + (b0 & b1) e3`` with the
-    row's scalars ``c = m0 FM``, ``e1 = m1 - m0``, ``e2 = m2 - m0``,
+  * for card 4 the packed symbol word ``sym3[x] = s(w0 + x) |
+    s(w0 + V + x) << 10 | s(w0 + 2V + x) << 20`` (0 outside the sequence)
+    as its code-bit planes ``b0 = sym3 & FM`` and ``b1 = (sym3 >> 1) & FM``,
+    and the match ``c + b0 e1 + b1 e2 + (b0 & b1) e3`` with the row's
+    scalars ``c = m0 FM``, ``e1 = m1 - m0``, ``e2 = m2 - m0``,
     ``e3 = m3 - m2 - m1 + m0`` (``m = score + 256``), exact modulo 2^32;
-  * for any other card from three table reads, ``m[code_f] << 10 f``.
+  * for any other card the three codes' byte offsets into the row's tables,
+    ``4 (s & 63)`` in byte f of the entry (byte 3 zero; 0 outside the
+    sequence), and the match the sum of three table reads at those offsets
+    from field f's table, whose entry ``code`` is ``m[code] << 10 f``
+    (:func:`stage_offsets`, :func:`row_tables`, :func:`match_offsets`).
 
 The biased update is the JAX kernel's: ``w = st + match``, ``t9 = w >> 9``,
 ``keep = (w >> 8) & ~t9 & FM``, ``st = w & (keep * 255)``; a hit is bit 9
 of a field. A window of ``window`` rows ORs the hit bits into one word; a
 warp whose lanes saw any replays the window from its saved state and
-decodes the hits row by row. Blocks that touch the left triangle (a
+decodes the hits row by row. A window's reset rows are one mask, bit r for
+its row r (:func:`window_reset_mask`): a window whose mask is 0 runs its
+rows without the reset test. Blocks that touch the left triangle (a
 diagonal below 0 starts at row -d with ``init_carry``), the right one (a
 diagonal ends at the sequence's last position) or lie past the sequence run
 a masked update: a field outside its live rows neither changes nor hits.
@@ -48,6 +55,7 @@ FM = 0x00100401  # bit 0 of each 10-bit field
 HM = FM << 9  # bit 9: the hit bit
 FIELD = 0x3FF
 U32 = 0xFFFFFFFF
+MAX_CARD = 32  # entries a field's table (csrc/ssv_sweep.cu kMaxCard)
 KEY_POS_BITS = 38
 
 
@@ -87,6 +95,8 @@ class Stats:
     masked_tiles: int = 0  # staged tiles run with the per-field masks
     tiles: int = 0
     dump_writes: int = 0  # cells the row dump stored
+    reset_windows: int = 0  # windows that ran the reset test
+    interior_reset_windows: int = 0  # of them, in interior blocks
 
 
 def pack3(f0, f1, f2) -> np.ndarray:
@@ -112,6 +122,44 @@ def stage_symbols(symbols: np.ndarray, w0: int, n: int, V: int) -> np.ndarray:
         ok = (pos >= 0) & (pos < L)
         fields.append(np.where(ok, symbols[np.clip(pos, 0, L - 1)], 0))
     return pack3(*fields)
+
+
+def stage_offsets(symbols: np.ndarray, w0: int, n: int, V: int
+                  ) -> np.ndarray:
+    """The other cards' staged entries for x in [0, n): byte f holds
+    4 x (the code at w0 + x + f V, masked to 6 bits), 0 outside; byte 3
+    is 0. An invalid code (up to 255) stays inside the tables' slack."""
+    codes = unpack3(stage_symbols(symbols, w0, n, V))
+    return sum(((codes[f] & 63) << 2) << (8 * f) for f in range(3))
+
+
+def row_tables(score_row: np.ndarray) -> np.ndarray:
+    """One row's tables as the kernel stages them, 32-bit entries: field f's
+    table from entry 32 f, entry ``code`` = (score + 256) << 10 f; the 64
+    entries of slack after the last table (the kernel's sits after the
+    tile's last row) read 0 here."""
+    tab = np.zeros(3 * MAX_CARD + 64, np.int64)
+    biased = np.asarray(score_row, np.int64) + 256
+    for f in range(3):
+        tab[f * MAX_CARD:f * MAX_CARD + biased.size] = biased << (10 * f)
+    return tab
+
+
+def match_offsets(entries: np.ndarray, tab: np.ndarray) -> np.ndarray:
+    """The match words of staged entries: the reads at field f's table
+    byte offset (4 x 32 f) plus byte f of each entry (the extractions: a
+    mask, a byte permute and a shift)."""
+    e = np.asarray(entries, np.int64)
+    offs = (e & 0xFF, (e >> 8) & 0xFF, e >> 16)
+    words = [tab[(4 * MAX_CARD * f + offs[f]) // 4] for f in range(3)]
+    return (words[0] + words[1] + words[2]) & U32
+
+
+def window_reset_mask(reset: Optional[np.ndarray], j: int, n: int) -> int:
+    """Bit r set where row j + r of the window's n rows is a reset row."""
+    if reset is None:
+        return 0
+    return int(sum(1 << r for r in np.flatnonzero(reset[j:j + n])))
 
 
 def card4_planes(sym3: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -193,7 +241,6 @@ def sweep_words(symbols, scores, init_state, init_carry, reset_rows=None,
     keys = []
     v = np.arange(V, dtype=np.int64)
     warp = (v % layout.threads) // 32
-    match = match_card4 if card == 4 else match_tables
     for b in range(-(-(L + P - 1) // span)):
         d0 = b * span - (P - 1)
         diag = np.stack([d0 + f * V + v for f in range(3)])  # (3, V)
@@ -212,12 +259,14 @@ def sweep_words(symbols, scores, init_state, init_carry, reset_rows=None,
         # Rows where every field is live and none enters: unmasked tiles.
         ja, jb = (1 - d0 if d0 < 0 else 0), min(P, L - (d0 + span - 1))
 
-        def step(st, j, sym3, masked):
+        def step(st, j, entry, masked, rz):
             if masked:  # inject init_carry at a negative diagonal's first row
                 inj = pack3(*np.where((j == js) & (js > 0), icr[j], 0))
                 st = st | inj
-            cur = np.zeros_like(st) if reset is not None and reset[j] else st
-            nst, hit = update(cur, match(sym3, sc[j]))
+            cur = np.zeros_like(st) if rz else st
+            match = (match_card4(entry, sc[j]) if card == 4
+                     else match_offsets(entry, row_tables(sc[j])))
+            nst, hit = update(cur, match)
             lm = field_live(j, js, je)
             if masked:
                 nst = (nst & lm) | (st & ~lm & U32)
@@ -231,12 +280,18 @@ def sweep_words(symbols, scores, init_state, init_carry, reset_rows=None,
             masked = edge and not (j0 >= ja and j0 + nrows <= jb)
             stats.tiles += 1
             stats.masked_tiles += masked
-            staged = stage_symbols(sym, d0 + j0, V + nrows - 1, V)
+            staged = (stage_symbols if card == 4 else stage_offsets)(
+                sym, d0 + j0, V + nrows - 1, V)
             for k0 in range(0, nrows, layout.window):
                 n = min(layout.window, nrows - k0)
                 saved, acc = st, np.zeros_like(st)
+                # The window's reset rows: without one, no row tests.
+                rm = window_reset_mask(reset, j0 + k0, n)
+                stats.reset_windows += rm != 0
+                stats.interior_reset_windows += rm != 0 and not edge
                 for k in range(k0, k0 + n):
-                    st, hit, lm = step(st, j0 + k, staged[v + k], masked)
+                    rz = bool((rm >> (k - k0)) & 1)
+                    st, hit, lm = step(st, j0 + k, staged[v + k], masked, rz)
                     acc |= hit
                     if dump is not None:  # the fast pass stores live fields
                         j = j0 + k
@@ -258,7 +313,8 @@ def sweep_words(symbols, scores, init_state, init_carry, reset_rows=None,
                 # The warps that saw a hit replay the window and decode it.
                 stats.replays += np.unique(warp[acc != 0]).size
                 for k in range(k0, k0 + n):
-                    saved, hit, _ = step(saved, j0 + k, staged[v + k], masked)
+                    saved, hit, _ = step(saved, j0 + k, staged[v + k], masked,
+                                         bool((rm >> (k - k0)) & 1))
                     keys.append(decode_hits(hit, diag, j0 + k, row_offset,
                                             pos_offset))
                     per_lane = sum((hit >> (10 * f + 9)) & 1 for f in range(3))

@@ -19,6 +19,12 @@ Points (the JAX tool's draws, ``np.random.default_rng(0)``, L = B x W):
 - ``--kernel swar`` (default): codes in [0, ``--card``), scores in [-40,
   12) (sparse: no or few hits, the word update alone) or, with
   ``--dense``, in [-40, 110) (a hit every 7-8 cells).
+- ``--resets M`` (SWAR kernel only): reset rows at the starts of models
+  whose lengths are log-normal with median ``M`` rows (sigma 0.8, clipped
+  to 10-2,500, as ``ssvbench/configs/pfam35.json`` draws Pfam's families),
+  the first model entered at a uniform row of its length
+  (:func:`model_starts`): the isolated models' launch, whose kernel
+  instantiation takes reset rows.
 - ``--kernel unpacked``: the unpacked Pallas kernel's draw, symbols (B,
   W/128, 128) and scores (S, K, 4) with S = P // K
   (``--rows-per-strip`` sets K, so only S x K rows). The port serves that
@@ -50,7 +56,7 @@ which the tests use).
 
     python -m havac_tpu_torch.tools.kbench [--kernel swar|unpacked]
         [--blocks 22] [--rows 4080] [--width 387072] [--sweep-blocks 2 4 8 22]
-        [--dense] [--card 4] [--iters 5] [--json out.json]
+        [--dense] [--card 4] [--resets 122] [--iters 5] [--json out.json]
     python -m havac_tpu_torch.tools.kbench --device cpu --width 3072 \\
         --rows 60 --sweep-blocks 1 2 --iters 1
 """
@@ -141,13 +147,15 @@ class Chain:
     dispatch k - 1 wrote, and writes the other of two state buffers, so a
     launch never reads the state it writes; every dispatch's carry in is
     zero. All dispatches share one key buffer; dispatch k writes its exact
-    count into ``counts[k]``."""
+    count into ``counts[k]``. ``reset_rows`` (P,) int32, when given, go to
+    every dispatch."""
 
     def __init__(self, symbols: torch.Tensor, scores: torch.Tensor,
-                 n_hi: int = N_HI):
+                 n_hi: int = N_HI, reset_rows: Optional[torch.Tensor] = None):
         dev = symbols.device
         L, P = symbols.shape[0], scores.shape[0]
         self.symbols, self.scores, self.n_hi = symbols, scores, n_hi
+        self.reset_rows = reset_rows
         self.state0 = torch.zeros(L, dtype=torch.int32, device=dev)
         self.carry0 = torch.zeros(P + 1, dtype=torch.int32, device=dev)
         self._states = [torch.empty(L, dtype=torch.int32, device=dev)
@@ -174,8 +182,8 @@ class Chain:
         """Launch dispatch ``k`` from ``state``; returns the state it
         writes."""
         out = self.outs[k]
-        ssv_cuda.launch(self.symbols, self.scores, state, self.carry0, None,
-                        0, 0, out)
+        ssv_cuda.launch(self.symbols, self.scores, state, self.carry0,
+                        self.reset_rows, 0, 0, out)
         return out.final_state
 
     def run(self, n: int) -> ssv_cuda.SweepBuffers:
@@ -227,6 +235,20 @@ def swar_inputs(B: int, P: int, W: int, dense: bool = False,
     return codes, scores
 
 
+def model_starts(P: int, median: int, seed: int = 1) -> np.ndarray:
+    """(P,) int32 reset rows: 1 at each model's first row, for models whose
+    lengths are log-normal with median ``median`` rows (sigma 0.8, clipped
+    to 10-2,500), the first entered at a uniform row of its length; drawn
+    from ``np.random.default_rng(seed)``, apart from the codes and scores."""
+    rng = np.random.default_rng(seed)
+    lengths = np.clip(np.rint(rng.lognormal(np.log(median), 0.8,
+                                            P // 10 + 2)), 10, 2500)
+    starts = np.cumsum(lengths.astype(np.int64)) - rng.integers(0, lengths[0])
+    reset = np.zeros(P, np.int32)
+    reset[starts[starts < P]] = 1
+    return reset
+
+
 def unpacked_inputs(B: int, P: int, W: int, K: int) -> tuple:
     """The JAX tool's ``bench_unpacked`` draw: symbols (B, W/128, 128) and
     scores (S, K, 4) in [-40, 12) with S = P // K, flattened in that
@@ -240,9 +262,10 @@ def unpacked_inputs(B: int, P: int, W: int, K: int) -> tuple:
 
 
 def bench_point(symbols: np.ndarray, scores: np.ndarray, *, iters: int,
-                device, inspect: Optional[Callable[[Chain], None]] = None
-                ) -> dict:
-    """Time one point (module docstring); its record. ``inspect(chain)``,
+                device, inspect: Optional[Callable[[Chain], None]] = None,
+                reset_rows: Optional[np.ndarray] = None) -> dict:
+    """Time one point (module docstring); its record. ``reset_rows`` (P,)
+    int32, when given, go to every dispatch. ``inspect(chain)``,
     if given, sees the chain after its timing: its last timed chain is of
     ``N_HI`` dispatches, whose last one's buffers are ``chain.outs[-1]``.
     Any failure raises."""
@@ -250,7 +273,9 @@ def bench_point(symbols: np.ndarray, scores: np.ndarray, *, iters: int,
     sym = torch.from_numpy(symbols).to(dev)
     sc = torch.from_numpy(scores).to(dev)
     (L,), (P, card) = sym.shape, sc.shape
-    chain = Chain(sym, sc)
+    rr = (None if reset_rows is None else
+          torch.from_numpy(np.asarray(reset_rows, np.int32)).to(dev))
+    chain = Chain(sym, sc, reset_rows=rr)
     before = ssv_cuda.LAUNCHES
     chain.fit()
     timing = time_differential(chain.run, N_LO, N_HI, dev, iters,
@@ -279,6 +304,7 @@ def bench_point(symbols: np.ndarray, scores: np.ndarray, *, iters: int,
                     if dev.type == "cuda" else None),
         "bound_ms": None, "bound_by": None, "bound_share": None,
         "key_bound_ms": None, "min_ops": list(sweep_min_ops(card)),
+        "reset_rows": 0 if rr is None else int(rr.count_nonzero()),
     }
     if dev.type == "cuda":
         point.update(sweep_bound(roofline.Card.query(dev), L, P, card, hits))
@@ -287,11 +313,15 @@ def bench_point(symbols: np.ndarray, scores: np.ndarray, *, iters: int,
 
 
 def bench_swar(B: int, P: int, W: int, iters: int = 5, dense: bool = False,
-               card: int = 4, device="cuda", inspect=None) -> dict:
+               card: int = 4, device="cuda", inspect=None,
+               resets: Optional[int] = None) -> dict:
     """The SWAR kernel's point: ``swar_inputs``' draw through
-    :func:`bench_point`."""
+    :func:`bench_point`, with :func:`model_starts` at a median of
+    ``resets`` rows when given."""
     return bench_point(*swar_inputs(B, P, W, dense, card), iters=iters,
-                       device=device, inspect=inspect)
+                       device=device, inspect=inspect,
+                       reset_rows=(None if resets is None
+                                   else model_starts(P, resets)))
 
 
 def bench_unpacked(B: int, P: int, W: int, K: int = 32, iters: int = 5,
@@ -317,14 +347,20 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--card", type=int, default=4,
                     help="alphabet cardinality (SWAR kernel only): 4 = "
                     "nucleotide, 20 = amino")
+    ap.add_argument("--resets", type=int, default=None,
+                    help="reset rows at model starts, model lengths "
+                    "log-normal at this median (SWAR kernel only)")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without CUDA) or cpu")
     ap.add_argument("--json", default=None,
                     help="also write the provenance and the points here")
     args = ap.parse_args(argv)
-    if args.kernel == "unpacked" and (args.dense or args.card != 4):
-        ap.error("--dense and --card are for --kernel swar")
+    if args.kernel == "unpacked" and (args.dense or args.card != 4
+                                      or args.resets is not None):
+        ap.error("--dense, --card and --resets are for --kernel swar")
+    if args.resets is not None and args.resets < 1:
+        ap.error("--resets must be positive")
     if args.kernel == "unpacked" and not 1 <= args.rows_per_strip <= args.rows:
         ap.error("--rows-per-strip must lie in [1, --rows]")
     if args.width < 1 or args.rows < 1 or args.iters < 1:
@@ -335,8 +371,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def describe(p: dict) -> str:
     """A point's line: the JAX tool's, plus the kernel's time, its bound
     and share, the hits, the geometry and the route."""
+    resets = f" reset rows {p['reset_rows']}" if p["reset_rows"] else ""
     line = (f"{p['kernel']} B={p['B']:3d} W={p['W']} P={p['P']} "
-            f"card={p['card']}{' dense' if p['dense'] else ''}: "
+            f"card={p['card']}{' dense' if p['dense'] else ''}{resets}: "
             f"{p['gcups']:8.1f} GCUPS (median "
             f"{p['gcups_median']:.1f}), kernel {p['kernel_ms']:.4f} ms")
     if p["bound_ms"] is not None:
@@ -361,7 +398,7 @@ def main(argv: Optional[List[str]] = None,
     for B in args.sweep_blocks or [args.blocks]:
         if args.kernel == "swar":
             p = bench_swar(B, args.rows, args.width, args.iters, args.dense,
-                           args.card, device, inspect)
+                           args.card, device, inspect, args.resets)
         else:
             p = bench_unpacked(B, args.rows, args.width, args.rows_per_strip,
                                args.iters, device, inspect)

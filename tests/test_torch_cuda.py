@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from havac_tpu_torch.engine import Havac
+from havac_tpu_torch.engine.pipeline import reset_counts
 from havac_tpu_torch.ops import ssv_cuda
 from havac_tpu_torch.ops.ssv_torch import ssv_sweep_plain
 from havac_tpu_torch.parallel.multihost import (ShardMesh,
@@ -110,6 +111,31 @@ def test_kernel_edges_match_plain(dev, case):
     assert torch.equal(res.final_carry, carry)
     if tag == "dense":
         assert keys.numel() > L * P // 4
+
+
+@pytest.mark.parametrize("L", [200_003, 1_000_003])
+def test_card20_at_pfam_model_starts_matches_plain(dev, L):
+    """Card 20 with reset rows at Pfam's density of model starts (model
+    lengths log-normal, median 122 rows, over a few thousand rows: about
+    one 16-row hit window in ten holds one), in narrow and wide blocks,
+    with hits: sorted keys, count, state and carry as the plain version."""
+    P = 3_000
+    rng = np.random.default_rng(L)
+    arrays = (rng.integers(0, 20, L).astype(np.uint8),
+              rng.integers(-40, 75, (P, 20)).astype(np.int8),
+              rng.integers(0, 256, L).astype(np.int32),
+              rng.integers(0, 256, P + 1).astype(np.int32))
+    t = [torch.from_numpy(a).to(dev) for a in arrays]
+    reset = kbench.model_starts(P, 122, seed=L)
+    rr = torch.from_numpy(reset).to(dev)
+    starts, windows = reset_counts(reset)
+    assert 0.03 < windows / -(-P // 16) < 0.3 and windows <= starts
+    res = ssv_cuda.ssv_sweep(*t, reset_rows=rr, row_offset=3, pos_offset=9)
+    keys, state, carry = ssv_sweep_plain(*t, rr, 3, 9)
+    assert res.count == keys.numel() > 0
+    assert torch.equal(torch.sort(res.keys).values, keys)
+    assert torch.equal(res.final_state, state)
+    assert torch.equal(res.final_carry, carry)
 
 
 def test_cuda_engine_matches_cpu_engine(dev):

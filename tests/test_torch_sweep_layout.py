@@ -302,3 +302,86 @@ def test_chunk_time_needs_a_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA device"):
             chunk_time.main(["--positions", "64", "--rows", "8"])
+
+
+# The reset rows' hit windows in the kernel's own tile and window rows
+# (64 and 16; 32 threads so that small inputs hold interior blocks):
+# (tag, card, reset rows or a pattern, codes at card - 1).
+RESET_GEOMETRY = sl.Layout(threads=32, words=2, rows=64, window=16)
+RESET_CASES = [
+    ("window-first-row", 20, [16, 48, 96, 160], False),
+    ("window-last-row", 20, [15, 47, 111, 191], False),
+    ("two-in-one-window", 20, [35, 41, 130, 131], False),
+    ("tile-with-none", 20, [5, 60, 130, 150], False),
+    ("chunk-row-0", 20, [0, 70], False),
+    ("codes-top-card5", 5, "models", True),
+    ("codes-top-card20", 20, "models", True),
+    ("codes-top-card32", 32, "models", True),
+]
+
+
+@pytest.mark.parametrize("case", RESET_CASES, ids=[c[0] for c in RESET_CASES])
+def test_reset_windows_match_plain_and_the_jax_reference(case):
+    """Only the hit windows that hold a model start run the reset test,
+    and the sweep stays exact: starts at a window's first and last row, two
+    in one window, a tile with none, a start at the chunk's row 0, and codes
+    at card - 1 for cards 5, 20 and 32 (the offsets' largest bytes). In
+    interior blocks those windows are the pipeline's count (its
+    ``reset_windows``), one set a block."""
+    from havac_tpu_torch.engine.pipeline import reset_counts
+    from havac_tpu_torch.tools.kbench import model_starts
+
+    tag, card, rows, top = case
+    L, P = 1_200, 200
+    sym, sc, ist, icr, _ = inputs(len(tag) + card, L, P, card, hi=80)
+    if top:
+        rng = np.random.default_rng(card)
+        sym[rng.random(L) < 0.5] = card - 1
+    if rows == "models":
+        rr = model_starts(P, 20, seed=card)
+    else:
+        rr = np.zeros(P, np.int32)
+        rr[rows] = 1
+    stats = sl.Stats()
+    got = sl.sweep_words(sym, sc, ist, icr, rr, row_offset=7, pos_offset=13,
+                         layout=RESET_GEOMETRY, stats=stats)
+    want = plain(sym, sc, ist, icr, rr, row_offset=7, pos_offset=13)
+    assert want[0].size > 0
+    assert_same(got, want)
+    ref, _ = ssv_reference(sym, sc, ist, icr, reset_rows=rr)
+    keys = np.sort(((ref.hit_rows + 7) << 38) | (ref.hit_positions + 13))
+    assert_same(got, (keys, ref.final_row_state, ref.final_carry))
+    resets, windows = reset_counts(rr)
+    assert resets == np.count_nonzero(rr) and 0 < windows < resets + 1
+    assert stats.interior_blocks >= 2
+    assert stats.interior_reset_windows == stats.interior_blocks * windows
+    assert stats.reset_windows < stats.windows
+    if rows != "models":
+        assert windows == len({r // 16 for r in rows})
+
+
+@pytest.mark.parametrize("card", [5, 20, 32])
+def test_staged_offsets_select_the_biased_scores(card):
+    """Other cards' staged entries hold 4 x each code in bytes 0-2 (byte 3
+    zero), and three reads at those offsets from the row's field tables
+    give score + 256 in each field; an invalid code (up to 255) reads
+    inside the tables and their slack."""
+    rng = np.random.default_rng(card)
+    codes = rng.integers(0, card, 600).astype(np.uint8)
+    codes[::7] = card - 1
+    V = 200
+    entries = sl.stage_offsets(codes, 0, V, V)
+    fields = sl.unpack3(sl.stage_symbols(codes, 0, V, V))
+    for f in range(3):
+        np.testing.assert_array_equal((entries >> (8 * f)) & 0xFF,
+                                      4 * fields[f])
+    assert not (entries >> 24).any()
+    row = rng.integers(-128, 128, card).astype(np.int8)
+    want = sl.pack3(*(row.astype(np.int64)[fields] + 256))
+    np.testing.assert_array_equal(
+        sl.match_offsets(entries, sl.row_tables(row)), want)
+    np.testing.assert_array_equal(sl.match_tables(sl.pack3(*fields), row),
+                                  want)
+    bad = sl.stage_offsets(np.full(3 * V, 255, np.uint8), 0, V, V)
+    tab = sl.row_tables(row)
+    assert ((4 * sl.MAX_CARD * 2 + (bad >> 16)) // 4 < tab.size).all()

@@ -7,6 +7,7 @@ import threading
 import time
 from collections import Counter, defaultdict
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
@@ -308,8 +309,26 @@ def test_launch_args_card_and_resets(tmp_path, monkeypatch, alphabet,
     per_column = Counter()
     for a in launches:
         per_column[a["column_chunk"]] += a["resets"]
+        assert a["reset_windows"] <= a["resets"]
+        assert (a["reset_windows"] > 0) == (a["resets"] > 0)
     assert per_column == Counter({c: len(models) if isolate else 0
                                   for c in range(sweep.n_col)})
+    assert sweep.prof["reset_windows"] == sum(a["reset_windows"]
+                                              for a in launches)
+
+
+@pytest.mark.parametrize("rows,want", [
+    ([], (0, 0)), ([0], (1, 1)), ([15, 16], (2, 2)), ([3, 9, 15], (3, 1)),
+    ([36], (1, 1)), ([0, 16, 32, 36], (4, 3))])
+def test_reset_counts_align_windows_with_the_launch(rows, want):
+    """A launch's reset rows and its 16-row hit windows (from its first
+    row, the last one short) that hold one; none without reset rows."""
+    from havac_tpu_torch.engine.pipeline import reset_counts
+
+    reset = np.zeros(37, np.int32)
+    reset[rows] = 1
+    assert reset_counts(reset) == want
+    assert reset_counts(None) == (0, 0)
 
 
 def test_load_prof_times_parse_and_project(files, tmp_path):

@@ -6,8 +6,9 @@ Phases (each prints its own lines; any failure exits non-zero):
 
 1. device  — the card's name and ``nvidia-smi`` name/power limit; fails
              without CUDA.
-2. build   — compiles havac_tpu_torch/csrc/*.cu (ssv_sweep.cu and
-             roofline.cu; nvcc, sm_90a) into one library.
+2. build   — compiles havac_tpu_torch/csrc/ssv_sweep.cu (nvcc, sm_90a)
+             into the sweep's library, the one a search loads, and prints
+             ptxas' registers, spills and shared memory a kernel.
 3. kernel  — the CUDA sweep kernel against its plain PyTorch version on the
              card, exactly (sorted keys, count, final state and carry):
              card 4 and 20, with and without reset rows, non-zero boundary
@@ -51,9 +52,11 @@ Phases (each prints its own lines; any failure exits non-zero):
              subprocess answering two of the files, a missing path (an error
              line, the server stays up) and ``quit``; one ``benchmark``
              subcommand on one file.
-8. roofline — the op-mix roofline kernels of havac_tpu_torch/csrc/roofline.cu
-             (roofline_op_mix, roofline_add_chain, roofline_narrow_mix,
-             roofline_strip, roofline_mxu) at K = 30, each variant at its
+8. roofline — builds havac_tpu_torch/csrc/roofline.cu into the probes' own
+             library (printing ptxas' report as phase 2 does); the op-mix
+             roofline kernels (roofline_op_mix, roofline_add_chain,
+             roofline_narrow_mix, roofline_strip, roofline_mxu) at K = 30,
+             each variant at its
              largest WS (64; 48 for mxumatch / mxumatch8, whose warps'
              rings of packed match words live in shared memory): every copy
              of every one of the 15 variants against its plain version on
@@ -414,24 +417,29 @@ def sweep_sass() -> dict:
     """SASS a word and row of the word kernel's interior hit window, per
     instantiation of its wide (256-thread, 2-word) blocks, which the main
     path's chunks run, and of the row dump (its own geometry): the smallest
-    forward-branch pass of a loop with one vote (the partial-window and
-    replay blocks skipped; no barrier, or the dump's one: its staged rows'
-    hand-over) over the window's rows and a thread's words."""
+    forward-branch pass of a window's loop, over the window's rows and a
+    thread's words. A window's loop has no barrier (the dump's: one, its
+    staged rows' hand-over), lies in no other such loop (the partial-window
+    and replay loops lie in it) and its pass has the window's votes: the
+    hit vote, and with reset rows the ballot of the window's reset rows."""
     kernels = sass.parse(sass.disassemble(ssv_cuda.library_path()))
     dump_geo = f"ELi{ssv_cuda.DUMP_THREADS}ELi{ssv_cuda.DUMP_WORDS}ELb1E"
     out = {}
-    for tag, args, words, bars in (
-            ("card4", "ILb1ELb0ELi256ELi2ELb0E", ssv_cuda.KERNEL_WORDS, 0),
+    for tag, args, words, bars, votes in (
+            ("card4", "ILb1ELb0ELi256ELi2ELb0E", ssv_cuda.KERNEL_WORDS, 0, 1),
             ("card4-reset", "ILb1ELb1ELi256ELi2ELb0E", ssv_cuda.KERNEL_WORDS,
-             0),
-            ("tables", "ILb0ELb0ELi256ELi2ELb0E", ssv_cuda.KERNEL_WORDS, 0),
-            ("dump", "ILb1ELb0" + dump_geo, ssv_cuda.DUMP_WORDS, 1)):
+             0, 2),
+            ("tables", "ILb0ELb0ELi256ELi2ELb0E", ssv_cuda.KERNEL_WORDS, 0,
+             1),
+            ("dump", "ILb1ELb0" + dump_geo, ssv_cuda.DUMP_WORDS, 1, 1)):
         name = next(n for n in kernels
                     if "ssv_word_kernel" in n and args in n)
-        passes = [sass.fast_path(kernels[name], a, b)
-                  for a, b, counts, _ in sass.loops(kernels[name])
-                  if counts["bar"] == bars]
-        out[tag] = min(p["total"] for p in passes if p["VOTE"] == 1) / (
+        spans = [(a, b) for a, b, counts, _ in sass.loops(kernels[name])
+                 if counts["bar"] == bars]
+        passes = [sass.fast_path(kernels[name], a, b) for a, b in spans
+                  if not any(c <= a and b <= d and (c, d) != (a, b)
+                             for c, d in spans)]
+        out[tag] = min(p["total"] for p in passes if p["VOTE"] == votes) / (
             ssv_cuda.WINDOW_ROWS * words)
     return out
 
@@ -448,7 +456,8 @@ def roofline_sass() -> tuple[dict, dict, dict]:
     narrow variants (add8, add16, int8mix, int16mix: their row loops a
     32-bit output word, split by pipe, as
     ``havac_tpu_torch.tools.narrow_time`` counts them)."""
-    kernels = sass.parse(sass.disassemble(ssv_cuda.library_path()))
+    kernels = sass.parse(sass.disassemble(
+        ssv_cuda.library_path(*roofline.LIBRARY)))
     narrow = {name: narrow_time.row_sass(kernels, name)
               for name in narrow_time.NARROW}
 
@@ -1461,7 +1470,23 @@ def run_paths(dev, smi, work, max_err) -> dict:
          "replaces": DUMP_REPLACES, **dump}]}, st.gcups
 
 
+def log_ptxas(tag: str, build_log: str) -> None:
+    """ptxas' registers, shared memory and spills of each kernel of a
+    library's build (nothing when the library was built already)."""
+    entry = ""
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            log(f"[{tag}] {entry}: {line.split(':', 1)[-1].strip()}")
+
+
 def phase_roofline(dev, smi, card, main_gcups):
+    t0 = time.perf_counter()
+    path, text, seconds = ssv_cuda.build_library(*roofline.LIBRARY)
+    log(f"[roofline] {os.path.relpath(path, ROOT)} in "
+        f"{time.perf_counter() - t0:.3f} s (nvcc {seconds:.3f} s)")
+    log_ptxas("roofline", text)
     k = ROOFLINE_ROWS
     err = dict.fromkeys(roofline.KERNELS, 0)
     plain = {}
@@ -1639,12 +1664,7 @@ def main() -> int:
     path = ssv_cuda.build()
     log(f"[build] {os.path.relpath(path, ROOT)} in "
         f"{time.perf_counter() - t0:.3f} s (nvcc {ssv_cuda.build_seconds:.3f} s)")
-    entry = ""
-    for line in ssv_cuda.build_log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-        elif "registers" in line or "spill" in line:
-            log(f"[build] {entry}: {line.split(':', 1)[-1].strip()}")
+    log_ptxas("build", ssv_cuda.build_log)
 
     max_err = phase_kernel(dev)
 

@@ -1070,3 +1070,7 @@ extern "C" int hv_roofline_blocks_per_sm(int kernel, int which, int ws, int k,
         blocks, kNarrow[which - 1], narrow_threads(which, ws), narrow_smem(k));
   return cudaErrorInvalidValue;
 }
+
+extern "C" const char* hv_roofline_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

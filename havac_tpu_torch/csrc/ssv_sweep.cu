@@ -81,43 +81,28 @@
 // `_ssv_swar_jit(debug_rows=True)`) and the row-by-row `_ssv_pallas_jit`
 // readout of havac_tpu/testing/percell.py `dp_matrix_pallas`.
 // What bounds it: the bytes, one a cell, and in practice their pattern. A
-// block's live cells at row j are one run of at most 3 kV bytes starting at
-// j (L + 1) + d0 + lo, an alignment that moves every row, and the block's
-// runs of successive rows lie L + 1 bytes apart. Byte stores of the live
-// fields straight from the word body (a warp's 32 lanes write 32
-// consecutive bytes a field) are the simplest form and the slowest:
-// havac_tpu_torch/tools/dump_probe.py times them against this design on
-// the card (PERF.md). So a hit window's rows are staged in shared memory,
-// each at its destination's alignment mod 16; after one barrier a window,
-// one thread a row writes the run's 16-byte-aligned middle with
+// block's live cells at row j are one run of at most 3 kV bytes starting at j
+// (L + 1) + d0 + lo, an alignment that moves every row, and the block's runs
+// of successive rows lie L + 1 bytes apart. Byte stores of the live fields
+// straight from the word body (a warp's 32 lanes write 32 consecutive bytes a
+// field) are the simplest form and drained the slowest, measured on the card
+// against this design (CHANGES.md). So a hit window's rows are staged in
+// shared memory, each at its destination's alignment mod 16; after one barrier
+// a window, one thread a row writes the run's 16-byte-aligned middle with
 // cp.async.bulk (shared to global, the async proxy) and the ragged head and
-// tail (under 16 bytes each) go by byte stores, two buffers in turn so that
-// a window's copies run behind the next window's rows. Alignment is that of
-// the address, so the dump may start anywhere. Even those whole-chunk
-// writes drain slower the narrower the run (dump_probe.py's bare pattern),
+// tail (under 16 bytes each) go by byte stores, two buffers in turn so that a
+// window's copies run behind the next window's rows. Alignment is that of the
+// address, so the dump may start anywhere. Even those whole-chunk writes
+// drained slower the narrower the run (the bare write pattern, timed alone),
 // and the dump's geometry is its own (kDumpT, kDumpW): 128 threads of one
-// word, a 384-byte run a row, the widest whose card-20 tables and two
-// staging buffers fit a block's 48 KB of static shared memory, one word a
-// thread keeping the row under 64 registers.
+// word, a 384-byte run a row, the widest whose card-20 tables and two staging
+// buffers fit a block's 48 KB of static shared memory, one word a thread
+// keeping the row under 64 registers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
-
-#ifdef HV_BLOCK_STAMPS
-// Only in havac_tpu_torch/tools/dump_probe.py's builds, never the port's
-// library: each block's [start ns, end ns, edge, replayed windows].
-__device__ long long* g_stamps;
-extern "C" int hv_set_stamps(void* p) {
-  return (int)cudaMemcpyToSymbol(g_stamps, &p, sizeof(p));
-}
-__device__ __forceinline__ long long stamp_ns() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-#endif
 
 namespace {
 
@@ -153,20 +138,8 @@ struct Sweep {
 constexpr int kWide = 256;
 constexpr int kNarrow = 64;
 constexpr int kWords = 2;               // words a thread
-// The row dump's threads a block and words a thread. dump_probe.py's
-// builds also set other geometries, and byte stores straight from the word
-// body in place of the staging (which does not fit a wider block's static
-// shared memory), to compare them with the staging.
-#ifndef HV_DUMP_THREADS
-#define HV_DUMP_THREADS 128
-#endif
-constexpr int kDumpT = HV_DUMP_THREADS;
-constexpr int kDumpW = 1;
-#ifdef HV_DUMP_BYTE_STORES
-constexpr bool kByteStores = true;
-#else
-constexpr bool kByteStores = false;
-#endif
+constexpr int kDumpT = 128;             // the row dump's threads a block
+constexpr int kDumpW = 1;               // and words a thread
 constexpr int kRows = 64;               // model rows a staged tile
 constexpr int kWin = 16;                // rows a hit window
 
@@ -387,7 +360,7 @@ __device__ __forceinline__ void stage(Tile<kCard4, kT, kW>& t, const Sweep& a,
 
 // The row dump's stores of one word into a row of the span: field f of word
 // w is span position f kV + w kT + tid of `row` (the staged row at its
-// destination's alignment, or with byte stores the dump's row itself).
+// destination's alignment).
 template <bool kMask, int kT, int kW>
 __device__ __forceinline__ void stage_word(uint8_t* row, uint32_t st,
                                            uint32_t lm, int w) {
@@ -399,8 +372,8 @@ __device__ __forceinline__ void stage_word(uint8_t* row, uint32_t st,
 
 // The rows of one hit window, rows k0 .. k0 + n - 1 of the tile (all kWin
 // of them unrolled when n == kWin): the state, the hit bits into `acc`, and
-// in the dump each row's live fields into `buf` (byte stores: the dump
-// itself, from a.dump + gpos; `gpos` advances a row at a time). kTest: bit r
+// in the dump each row's live fields into `buf` at the alignment of
+// a.dump + gpos (`gpos` advances a row at a time). kTest: bit r
 // of `rm` marks row k0 + r a reset row; without it the rows run no reset
 // test.
 template <bool kCard4, bool kReset, bool kMask, int kT, int kW, bool kDump,
@@ -425,9 +398,7 @@ __device__ __forceinline__ void window_rows(uint32_t (&st)[kW],
             a.init_carry, h, lm);
         acc[w] |= h;
         if (kDump)
-          stage_word<kMask, kT, kW>(
-              kByteStores ? a.dump + gpos : &buf[r][(int)(gpos & 15)], st[w],
-              lm, w);
+          stage_word<kMask, kT, kW>(&buf[r][(int)(gpos & 15)], st[w], lm, w);
       }
       if (kDump) gpos += a.L + 1;
     }
@@ -443,9 +414,7 @@ __device__ __forceinline__ void window_rows(uint32_t (&st)[kW],
             a.init_carry, h, lm);
         acc[w] |= h;
         if (kDump)
-          stage_word<kMask, kT, kW>(
-              kByteStores ? a.dump + gpos : &buf[r][(int)(gpos & 15)], st[w],
-              lm, w);
+          stage_word<kMask, kT, kW>(&buf[r][(int)(gpos & 15)], st[w], lm, w);
       }
       if (kDump) gpos += a.L + 1;
     }
@@ -471,8 +440,7 @@ __device__ __forceinline__ void tile_rows(uint32_t (&st)[kW],
     }
     const int n = nrows - k0 < kWin ? nrows - k0 : kWin;
     // The dump: row r of the window goes to buffer `win & 1`, at the
-    // alignment of its cell of diagonal d0, a.dump + gpos (byte stores: to
-    // there).
+    // alignment of its cell of diagonal d0, a.dump + gpos.
     auto& buf = ds.row[win & 1];
     long long gpos = (long long)(j0 + k0) * (a.L + 1) + d0 + a.skew;
     // The window's reset rows (bit r: row k0 + r), the same in every lane:
@@ -487,7 +455,7 @@ __device__ __forceinline__ void tile_rows(uint32_t (&st)[kW],
     else
       window_rows<kCard4, kReset, kMask, kT, kW, kDump, false>(
           st, acc, t, buf, a, g, gpos, j0, k0, n, 0);
-    if (kDump && !kByteStores) {
+    if (kDump) {
       // The staged rows become visible to the bulk copies (async proxy);
       // the previous window's copies, which read the other buffer, have
       // finished reading it before anyone writes there again (each issuing
@@ -505,10 +473,6 @@ __device__ __forceinline__ void tile_rows(uint32_t (&st)[kW],
     for (int w = 0; w < kW; ++w) any |= acc[w];
     if (__any_sync(0xffffffffu, any != 0)) {
       // Rare: replay the window from its saved state and emit its hits.
-#ifdef HV_BLOCK_STAMPS
-      if ((tid & 31) == 0)
-        atomicAdd((unsigned long long*)&g_stamps[4 * blockIdx.x + 3], 1ull);
-#endif
 #pragma unroll 1
       for (int r = 0; r < n; ++r) {
         uint32_t h[kW], lm;
@@ -575,7 +539,7 @@ __device__ __forceinline__ void sweep_block(Tile<kCard4, kT, kW>& t,
   }
   // The dump's last bulk copies are done before the block's shared memory
   // goes.
-  if (kDump && !kByteStores && tid < kWin)
+  if (kDump && tid < kWin)
     asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 
   // Each field holds its diagonal's state after its last live row.
@@ -599,15 +563,12 @@ __global__ void __launch_bounds__(kT, 1024 / kT)
 ssv_word_kernel(const Sweep a) {
   constexpr int kSpan = 3 * kT * kW;  // diagonals a block
   __shared__ __align__(16) Tile<kCard4, kT, kW> t;
-  // The row dump's staging (declared, and unused, when not staging: 16
+  // The row dump's staging (declared, and unused, without the dump: 16
   // bytes of shared memory is what it costs then).
   __shared__ __align__(16)
-      uint8_t ds_raw[kDump && !kByteStores ? sizeof(DumpStage<kSpan>) : 16];
+      uint8_t ds_raw[kDump ? sizeof(DumpStage<kSpan>) : 16];
   auto& ds = *reinterpret_cast<DumpStage<kSpan>*>(ds_raw);
   const long long d0 = (long long)blockIdx.x * kSpan - (a.P - 1);
-#ifdef HV_BLOCK_STAMPS
-  const long long t0 = stamp_ns();
-#endif
   if (blockIdx.x == 0 && threadIdx.x == 0) a.final_carry[0] = a.init_state[a.L - 1];
   // Interior: every field live from row 0 to row P - 1.
   const bool interior = d0 >= 0 && d0 + kSpan - 1 <= a.L - a.P;
@@ -615,14 +576,6 @@ ssv_word_kernel(const Sweep a) {
     sweep_block<kCard4, kReset, false, kT, kW, kDump>(t, ds, a, d0);
   else
     sweep_block<kCard4, kReset, true, kT, kW, kDump>(t, ds, a, d0);
-#ifdef HV_BLOCK_STAMPS
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    g_stamps[4 * blockIdx.x] = t0;
-    g_stamps[4 * blockIdx.x + 1] = stamp_ns();
-    g_stamps[4 * blockIdx.x + 2] = !interior;
-  }
-#endif
 }
 
 template <int kT, int kW, bool kDump>

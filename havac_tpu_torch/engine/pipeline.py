@@ -371,7 +371,7 @@ class PipelinedSweep(KeyedLaunches):
         with span("havac.stage", self.prof, "stage", request=request):
             self.device = torch.device(device)
             if self.device.type == "cuda":
-                ssv_cuda.build()
+                ssv_cuda.load_library()
             self.L = int(codes.shape[0])
             self.P, card = scores.shape
             if self.L == 0 or self.P == 0:

@@ -1,12 +1,13 @@
 """The hand-written Hopper SSV sweep kernel: build, binding and checked wrapper.
 
-Every ``havac_tpu_torch/csrc/*.cu`` (the sweep, ``ssv_sweep.cu``, and the
-roofline probes, ``roofline.cu``, whose wrapper is
-:mod:`havac_tpu_torch.tools.roofline`) is compiled with ``nvcc`` for sm_90a
-into one shared library with a plain C interface, at first use, under
-``build/havac_tpu_torch/`` beside the package (keyed by a hash of the
-sources, so an edited ``.cu`` rebuilds; one ``nvcc`` a source, all started
-together, then one link), and bound with ``ctypes`` (:func:`load_library`).
+The sweep, ``havac_tpu_torch/csrc/ssv_sweep.cu``, is compiled with ``nvcc``
+for sm_90a into a shared library with a plain C interface of its own, at
+first use, under ``build/havac_tpu_torch/`` beside the package, and bound
+with ``ctypes`` (:func:`load_library`). :func:`build_library` builds any
+``csrc`` sources so (keyed by a hash of the flags and the sources, so an
+edited ``.cu`` rebuilds; one ``nvcc`` a source, all started together, then
+one link): the roofline probes, ``roofline.cu``, are
+:mod:`havac_tpu_torch.tools.roofline`'s library, not the sweep's.
 
 :func:`launch` enqueues one sweep on the current CUDA stream without
 synchronising; :func:`ssv_sweep` is the synchronous form that reads the
@@ -24,7 +25,6 @@ dump.
 from __future__ import annotations
 
 import ctypes
-import glob
 import hashlib
 import os
 import shutil
@@ -32,7 +32,7 @@ import subprocess
 import threading
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -56,23 +56,23 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "havac_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# The sweep's library: its file name's stem and its sources in csrc/.
+STEM, SOURCES = "libhavac_ssv", ("ssv_sweep.cu",)
+
 _lib = None
 _lib_lock = threading.Lock()
-build_log = ""  # nvcc's output (ptxas register/shared-memory report)
-build_seconds = 0.0  # 0.0 when the library was already built
+build_log = ""  # the sweep's nvcc output (ptxas register/shared-memory report)
+build_seconds = 0.0  # 0.0 when the sweep's library was already built
 
 
-def _sources():
-    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
-
-
-def library_path() -> str:
-    """Where the library for the current sources and flags lives."""
+def library_path(stem: str = STEM, sources=SOURCES) -> str:
+    """Where the library of ``sources`` (file names in ``csrc/``) lives for
+    their current text and the flags: the sweep's by default."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        with open(src, "rb") as f:
-            h.update(os.path.basename(src).encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"libhavac_ssv_{h.hexdigest()[:16]}.so")
+    for name in sources:
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
 
 
 def _nvcc() -> str:
@@ -97,20 +97,22 @@ def compile_object(src: str, obj: str) -> subprocess.Popen:
                             stderr=subprocess.STDOUT, text=True)
 
 
-def build() -> str:
-    """Compile the kernel library if it is missing; returns its path."""
-    global build_log, build_seconds
-    path = library_path()
+def build_library(stem: str = STEM, sources=SOURCES) -> Tuple[str, str, float]:
+    """Compile the library of ``sources`` (file names in ``csrc/``) if it is
+    missing, into a temporary file renamed into place; returns its path,
+    nvcc's output and the build's seconds ("" and 0.0 when it was built
+    already)."""
+    path = library_path(stem, sources)
     if os.path.exists(path):
-        return path
+        return path, "", 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     t0 = time.perf_counter()
-    objs = [f"{tmp}.{i}.o" for i in range(len(_sources()))]
+    objs = [f"{tmp}.{i}.o" for i in range(len(sources))]
     procs = []
     try:
-        procs = [compile_object(src, obj)
-                 for src, obj in zip(_sources(), objs)]
+        procs = [compile_object(os.path.join(_CSRC, name), obj)
+                 for name, obj in zip(sources, objs)]
         logs = [p.communicate(timeout=600)[0] for p in procs]
         rc = max(p.returncode for p in procs)
         if rc == 0:
@@ -126,41 +128,44 @@ def build() -> str:
         for obj in objs:
             if os.path.exists(obj):
                 os.remove(obj)
-    build_log = "".join(logs)
+    log = "".join(logs)
     if rc != 0:
-        raise RuntimeError(f"nvcc failed ({rc}):\n{build_log}")
+        raise RuntimeError(f"nvcc failed ({rc}):\n{log}")
     os.replace(tmp, path)
-    build_seconds = time.perf_counter() - t0
+    return path, log, time.perf_counter() - t0
+
+
+def build() -> str:
+    """Compile the sweep's library if it is missing; returns its path."""
+    global build_log, build_seconds
+    path, log, seconds = build_library()
+    if seconds:
+        build_log, build_seconds = log, seconds
     return path
 
 
+def open_library(path: str, entry_points) -> ctypes.CDLL:
+    """``ctypes``' handle on the library at ``path``, each of its
+    ``entry_points`` ((name, restype, argtypes), ...) typed."""
+    lib = ctypes.CDLL(path)
+    for fn, restype, args in entry_points:
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = args
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
-    """The built library of every ``csrc/*.cu``, its C entry points typed
-    (the sweep here, the roofline probes of ``tools/roofline.py``)."""
+    """The sweep's library, built at the first call of the process and
+    loaded once, its C entry points typed."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
             p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            u64 = ctypes.c_ulonglong
-            for fn, restype, args in (
-                    ("hv_ssv_sweep", i, [p, i64, p, i, i, p, p, p, i64, i64,
-                                         p, p, p, u64, p, p, p]),
-                    ("hv_error_string", ctypes.c_char_p, [i]),
-                    ("hv_ssv_block_threads", i, [i64, i, ctypes.POINTER(i)]),
-                    ("hv_roofline_op_mix", i, [i, p, p, p, p, i, i, i, i, p,
-                                               p]),
-                    ("hv_roofline_add_chain", i, [i, p, i, i, i, i, p, p]),
-                    ("hv_roofline_narrow_mix", i, [i, p, p, p, p, i, i, i, i,
-                                                   p, p]),
-                    ("hv_roofline_strip", i, [p, p, p, p, i, i, i, i, p, p]),
-                    ("hv_roofline_mxu", i, [i, p, p, i, i, i, i, p, p]),
-                    ("hv_roofline_add16x2", i, [p, p, i64, p, p]),
-                    ("hv_roofline_blocks_per_sm", i,
-                     [i, i, i, i, ctypes.POINTER(i)])):
-                getattr(lib, fn).restype = restype
-                getattr(lib, fn).argtypes = args
-            _lib = lib
+            _lib = open_library(build(), (
+                ("hv_ssv_sweep", i, [p, i64, p, i, i, p, p, p, i64, i64, p, p,
+                                     p, ctypes.c_ulonglong, p, p, p]),
+                ("hv_error_string", ctypes.c_char_p, [i]),
+                ("hv_ssv_block_threads", i, [i64, i, ctypes.POINTER(i)])))
         return _lib
 
 

@@ -131,7 +131,7 @@ class SwarDistributedSweep(KeyedLaunches):
         self.groups: List[Tuple[int, int, int]] = []
         self.T = 0
         if any(d.type == "cuda" for d in mesh.devices):
-            ssv_cuda.build()
+            ssv_cuda.load_library()
 
         # Each process stages only its own seq shards' symbols, once on
         # each device that holds one of their shards.

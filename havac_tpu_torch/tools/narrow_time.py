@@ -99,7 +99,8 @@ def main(argv=None) -> int:
         raise RuntimeError("narrow_time needs a CUDA device")
     dev = torch.device("cuda:0")
     card = roofline.Card.query(dev)
-    kernels = sass.parse(sass.disassemble(ssv_cuda.build()))
+    kernels = sass.parse(sass.disassemble(
+        ssv_cuda.build_library(*roofline.LIBRARY)[0]))
     clk = card.sms * card.max_sm_mhz * 1e6
     report = {"device": card.smi, "package": ssv_cuda.__file__,
               "ws": args.ws, "rows": args.rows, "results": {}}

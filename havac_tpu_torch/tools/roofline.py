@@ -6,10 +6,11 @@ over a fixed buffer, K rows per rep, ``reps`` times, and is timed
 differentially, ``(t(hi) - t(lo)) / (hi - lo)`` with one launch at each rep
 count, so that launch and transfer costs cancel. The kernels are
 ``havac_tpu_torch/csrc/roofline.cu`` (one instance per block, ``copies``
-blocks); their plain PyTorch versions are :func:`op_mix_plain`. Inputs come
-from ``np.random.default_rng(0)`` in the JAX tool's order, so a kernel's
-output equals ``tools/roofline.py`` ``make_variant(name, ws, k)``'s word for
-word.
+blocks), built into a library of their own, apart from the sweep's
+(:func:`load_library`); their plain PyTorch versions are
+:func:`op_mix_plain`. Inputs come from ``np.random.default_rng(0)`` in the
+JAX tool's order, so a kernel's output equals ``tools/roofline.py``
+``make_variant(name, ws, k)``'s word for word.
 
 Variants (the JAX tool's; see its docstring for what each prices):
 
@@ -49,6 +50,7 @@ import ctypes
 import json
 import subprocess
 import sys
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional
@@ -80,6 +82,10 @@ KERNEL_OF = {**dict.fromkeys(INT32_VARIANTS, KERNELS[0]),
              "stripmatch": KERNELS[3],
              **dict.fromkeys(MXU_VARIANTS, KERNELS[4])}
 ROOFLINE_LAUNCHES = dict.fromkeys(KERNELS, 0)  # CUDA launches per kernel
+# The probes' library (ops/ssv_cuda.build_library): its stem and sources.
+LIBRARY = ("libhavac_roofline", ("roofline.cu",))
+_lib = None
+_lib_lock = threading.Lock()
 
 MAX_WS = 64  # one instance per block: 512 threads of 16 words
 MAX_ROWS = 128
@@ -436,6 +442,28 @@ def op_mix_plain(name: str, inputs: OpMixInputs, reps: int) -> torch.Tensor:
 
 # ---------------------------------------------------------------- kernels
 
+def load_library() -> ctypes.CDLL:
+    """The probes' library, built at the first call of the process and
+    loaded once, its C entry points typed."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            path = ssv_cuda.build_library(*LIBRARY)[0]
+            p, i = ctypes.c_void_p, ctypes.c_int
+            _lib = ssv_cuda.open_library(path, (
+                ("hv_roofline_op_mix", i, [i, p, p, p, p, i, i, i, i, p, p]),
+                ("hv_roofline_add_chain", i, [i, p, i, i, i, i, p, p]),
+                ("hv_roofline_narrow_mix", i, [i, p, p, p, p, i, i, i, i, p,
+                                               p]),
+                ("hv_roofline_strip", i, [p, p, p, p, i, i, i, i, p, p]),
+                ("hv_roofline_mxu", i, [i, p, p, i, i, i, i, p, p]),
+                ("hv_roofline_add16x2", i, [p, p, ctypes.c_longlong, p, p]),
+                ("hv_roofline_blocks_per_sm", i,
+                 [i, i, i, i, ctypes.POINTER(i)]),
+                ("hv_roofline_error_string", ctypes.c_char_p, [i])))
+        return _lib
+
+
 def _occupancy(name: str, ws: int, k: int) -> int:
     """The library's resident blocks per SM of the variant's kernel at
     (ws, k); 0 where a block of that shape does not fit the SM (its shared
@@ -444,7 +472,7 @@ def _occupancy(name: str, ws: int, k: int) -> int:
     which = (INT32_VARIANTS.index(name) if kernel == 0
              else _input_dtype(name).itemsize)
     n = ctypes.c_int(0)
-    lib = ssv_cuda.load_library()
+    lib = load_library()
     rc = lib.hv_roofline_blocks_per_sm(kernel, which, ws, k, ctypes.byref(n))
     return n.value if rc == 0 else 0
 
@@ -523,7 +551,7 @@ def op_mix(inputs: OpMixInputs, reps: int, copies: int = 1) -> torch.Tensor:
     check_kernel_shape(inputs.ws, inputs.k, name)
     out = torch.empty((copies, *out_shape(name, inputs.ws)),
                       dtype=_dtype(name), device=dev)
-    lib = ssv_cuda.load_library()
+    lib = load_library()
     ptrs = [p.data_ptr() for p in inputs.planes]
     kernel = KERNEL_OF[name]
     with torch.cuda.device(dev):
@@ -547,7 +575,7 @@ def op_mix(inputs: OpMixInputs, reps: int, copies: int = 1) -> torch.Tensor:
                                             *shape)
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: "
-                           f"{lib.hv_error_string(rc).decode()}")
+                           f"{lib.hv_roofline_error_string(rc).decode()}")
     ROOFLINE_LAUNCHES[kernel] += 1
     return out
 

@@ -2,7 +2,8 @@
 
     python -m havac_tpu_torch.tools.sass [--lib PATH] [--match SUBSTR]
 
-Runs ``cuobjdump -sass`` on the kernel library (built first if missing) and
+Runs ``cuobjdump -sass`` on a kernel library (by default the roofline
+probes', ``tools/roofline.py`` ``LIBRARY``, built first if missing) and
 prints, for every kernel whose name contains ``--match``, its instruction
 count and each loop (a backward branch and the instructions from its
 target up to it): the loop's address range, instruction count, and how many
@@ -132,14 +133,17 @@ def disassemble(lib: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--lib", default=None,
-                    help="kernel library (default: build the current one)")
+                    help="kernel library (default: the roofline probes', "
+                    "built if missing; the sweep's: ops/ssv_cuda "
+                    "library_path())")
     ap.add_argument("--match", default="roofline",
                     help="only kernels whose mangled name contains this")
     args = ap.parse_args(argv)
     lib = args.lib
     if lib is None:
         from havac_tpu_torch.ops import ssv_cuda
-        lib = ssv_cuda.build()
+        from havac_tpu_torch.tools import roofline
+        lib = ssv_cuda.build_library(*roofline.LIBRARY)[0]
     for name, kernel in parse(disassemble(lib)).items():
         if args.match not in name:
             continue

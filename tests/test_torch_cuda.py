@@ -8,6 +8,7 @@ is made inside the fixture, never at import). On the card:
 """
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -497,10 +498,10 @@ def test_strip_kernel_at_the_ring_edges(dev, ws):
 
 
 def test_strip_kernel_does_not_spill(dev, tmp_path):
-    """ptxas' report for strip_mix_kernel, compiled as the library is: no
-    spill stores or loads and at most 128 registers, so 512 threads (WS 64)
-    fit an SM."""
-    src = next(s for s in ssv_cuda._sources() if s.endswith("roofline.cu"))
+    """ptxas' report for strip_mix_kernel, compiled as the probes' library
+    is: no spill stores or loads and at most 128 registers, so 512 threads
+    (WS 64) fit an SM."""
+    src = os.path.join(ssv_cuda._CSRC, "roofline.cu")
     proc = ssv_cuda.compile_object(src, str(tmp_path / "roofline.o"))
     log = proc.communicate(timeout=600)[0]
     assert proc.returncode == 0, log
@@ -561,7 +562,7 @@ def test_narrow_kernels_fill_the_card(dev):
 def test_add16x2_wraps_every_halfword_pair(dev):
     """add16's add.u16x2 (SASS VIADD.16x2) on every pair of 16-bit values,
     in both halfwords, against the plain wrapping add, 2^28 pairs a launch."""
-    lib = ssv_cuda.load_library()
+    lib = roofline.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     i = torch.arange(1 << 16, dtype=torch.int64, device=dev)
     step = 1 << 12

@@ -341,3 +341,60 @@ def test_cli_cuda_without_a_card_fails():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         R.main(["--device", "cuda", "--variants", "current"])
+
+
+def test_probes_build_apart_from_the_sweep(tmp_path, monkeypatch):
+    """The probes (csrc/roofline.cu) and the sweep (csrc/ssv_sweep.cu) are
+    two libraries: an edited probe moves only the probes' library, an
+    edited sweep only the sweep's, and each loader types its own entry
+    points alone (the sweep's none of the probes')."""
+    import ctypes
+    import shutil
+    import types
+
+    from havac_tpu_torch.ops import ssv_cuda
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(ssv_cuda._CSRC, csrc)
+    monkeypatch.setattr(ssv_cuda, "_CSRC", str(csrc))
+    sweep, probes = ssv_cuda.library_path(), ssv_cuda.library_path(*R.LIBRARY)
+    assert os.path.basename(sweep).startswith("libhavac_ssv_")
+    assert os.path.basename(probes).startswith("libhavac_roofline_")
+    with open(csrc / "roofline.cu", "a") as f:
+        f.write("// edited\n")
+    assert ssv_cuda.library_path() == sweep
+    edited = ssv_cuda.library_path(*R.LIBRARY)
+    assert edited != probes
+    with open(csrc / "ssv_sweep.cu", "a") as f:
+        f.write("// edited\n")
+    assert ssv_cuda.library_path() != sweep
+    assert ssv_cuda.library_path(*R.LIBRARY) == edited
+
+    typed = {}
+
+    class Library:  # ctypes.CDLL's stand-in: records what gets typed
+        def __init__(self, path):
+            typed[path] = set()
+            self.path = path
+
+        def __getattr__(self, name):
+            typed[self.path].add(name)
+            return types.SimpleNamespace()
+
+    monkeypatch.setattr(ctypes, "CDLL", Library)
+    monkeypatch.setattr(ssv_cuda, "build", lambda: "sweep.so")
+    monkeypatch.setattr(ssv_cuda, "build_library",
+                        lambda stem, sources: (f"{stem}.so", "", 0.0))
+    monkeypatch.setattr(ssv_cuda, "_lib", None)
+    monkeypatch.setattr(R, "_lib", None)
+    assert R.load_library() is R.load_library()
+    assert list(typed) == ["libhavac_roofline.so"]  # the sweep's not loaded
+    assert ssv_cuda.load_library() is ssv_cuda.load_library()
+    assert typed == {
+        "sweep.so": {"hv_ssv_sweep", "hv_error_string",
+                     "hv_ssv_block_threads"},
+        "libhavac_roofline.so": {
+            "hv_roofline_op_mix", "hv_roofline_add_chain",
+            "hv_roofline_narrow_mix", "hv_roofline_strip", "hv_roofline_mxu",
+            "hv_roofline_add16x2", "hv_roofline_blocks_per_sm",
+            "hv_roofline_error_string"}}

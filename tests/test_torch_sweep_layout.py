@@ -279,29 +279,13 @@ def test_edge_blocks_mask_only_the_tiles_where_fields_enter_or_leave():
     assert stats.masked_tiles < stats.tiles // 4
 
 
-def test_dump_probe_needs_a_card():
-    """tools/dump_probe.py compares the shipped dump design (its first)
-    with byte stores (builds of csrc/ssv_sweep.cu with its stamp, geometry
-    and store flags) and runs on a card only."""
+def test_dump_emulation_geometry_is_the_kernels():
+    """The row dump's emulated geometry is the kernel's (csrc/ssv_sweep.cu
+    kDumpT, kDumpW, as ops/ssv_cuda.py states them)."""
     from havac_tpu_torch.ops import ssv_cuda
-    from havac_tpu_torch.tools import dump_probe
 
-    assert dump_probe.DESIGNS[0][1:] == (ssv_cuda.DUMP_THREADS, False)
     assert sl.DUMP.threads == ssv_cuda.DUMP_THREADS
     assert sl.DUMP.words == ssv_cuda.DUMP_WORDS
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA device"):
-            dump_probe.main([])
-
-
-def test_chunk_time_needs_a_card():
-    """tools/chunk_time.py times the kernel's main-path instantiations at a
-    chunk shape, on a card only."""
-    from havac_tpu_torch.tools import chunk_time
-
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA device"):
-            chunk_time.main(["--positions", "64", "--rows", "8"])
 
 
 # The reset rows' hit windows in the kernel's own tile and window rows

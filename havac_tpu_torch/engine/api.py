@@ -24,6 +24,7 @@ of its own), which requires ``isolate_models=True``.
 from __future__ import annotations
 
 import enum
+import functools
 import itertools
 import logging
 import os
@@ -31,7 +32,7 @@ import queue
 import threading
 import time
 import zlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -56,6 +57,7 @@ from havac_tpu_torch.parallel.swar_dist2d import Swar2DSweep
 
 DEFAULT_P_VALUE = 0.02  # the reference CLI's default
 SCAN_PRODUCER_THREAD = "havac-scan-producer"
+SWEEP_THREAD = "havac-sweep"  # a run's thread: staging, launches, tail
 
 log = logging.getLogger("havac_tpu_torch.engine")
 
@@ -95,7 +97,9 @@ class RunStats:
     # span of `engine/trace.py`; ``sort`` and ``resolve`` are summed over
     # the collector pool's threads. Three are counts: ``tail_segments``,
     # the segments the tail placed, ``launches``, the chunks launched, and
-    # ``reset_windows``, their hit windows that hold a model start.
+    # ``reset_windows``, their hit windows that hold a model start; and
+    # ``launched_ahead``, the launches enqueued before ``scan_files``
+    # yielded the previous file (0 for a run of its own).
     pipeline_prof: Optional[Dict[str, float]] = None
     num_unverified: int = 0  # populated when verify_hits=True
     # Whether the native host core resolved this run's hits (False: the
@@ -106,6 +110,42 @@ class RunStats:
     @property
     def gcups(self) -> float:
         return self.cells / self.sweep_seconds / 1e9 if self.sweep_seconds else 0.0
+
+
+@dataclass(eq=False)
+class _Run:
+    """One run: the database it sweeps, its request index, and what it
+    leaves (state, error, hits, stats). Runs carry their own state, so a
+    scan can sweep one file while the caller reads the last. ``launched``
+    (its last launch is enqueued) and ``done`` are set under ``wake``, which
+    a scan waits on; a run ``after`` another stages at once and launches
+    once that one has launched or ended."""
+
+    database: Optional[SequenceDatabase] = None
+    n_forward: int = 0
+    request: int = -1
+    state: HavacRunState = HavacRunState.IDLE
+    stream: Optional["torch.cuda.Stream"] = None  # None: the sweep's own
+    wake: threading.Condition = field(default_factory=threading.Condition)
+    after: Optional["_Run"] = None
+    sweep: Optional[PipelinedSweep] = None  # warmed for this database
+    thread: Optional[threading.Thread] = None
+    error: Optional[BaseException] = None
+    raw_keys: List[np.ndarray] = field(default_factory=list)
+    raw: Optional[Tuple[np.ndarray, np.ndarray]] = None
+    resolved: Optional[ResolvedHits] = None
+    stats: RunStats = field(default_factory=RunStats)
+    verification: object = None
+    chunks_done: int = 0
+    chunks_total: int = 0
+    launched: bool = False
+    done: bool = False
+    launched_ahead: int = 0
+
+    def mark(self, flag: str) -> None:
+        with self.wake:
+            setattr(self, flag, True)
+            self.wake.notify_all()
 
 
 class Havac:
@@ -186,7 +226,6 @@ class Havac:
         self.checkpoint_path = checkpoint_path
         self.resumed_chunks = 0
         self.verify_hits = verify_hits
-        self.verification = None
         self.alphabet = "dna"
 
         self.models: Optional[List[ProfileHmm]] = None
@@ -196,17 +235,10 @@ class Havac:
         # Seconds of the last load_phmm's halves: "parse" and "project".
         self.load_prof: Dict[str, float] = {}
 
-        self._state = HavacRunState.IDLE
         self._state_lock = threading.Lock()
         self._abort_event = threading.Event()
-        self._thread: Optional[threading.Thread] = None
-        self._error: Optional[BaseException] = None
-        self._raw_keys: List[np.ndarray] = []
-        self._raw: Optional[Tuple[np.ndarray, np.ndarray]] = None
-        self._resolved: Optional[ResolvedHits] = None
-        self._chunks_done = 0
-        self._chunks_total = 0
-        self.stats = RunStats()
+        # The run the caller sees: its state, progress, stats and hits.
+        self._run = _Run()
         self._warm_sweep: Optional[PipelinedSweep] = None
         # Index of the latest run: every span of a run carries it.
         self._request = -1
@@ -323,21 +355,27 @@ class Havac:
             self._warm_sweep = self._build_sweep()
         return self
 
-    def _codes(self) -> np.ndarray:
-        """The swept symbols: the database codes zero-padded to a multiple
-        of ``pad_multiple`` (as the JAX engine pads to its block width)."""
-        codes = self.database.codes
+    def _codes(self, database: Optional[SequenceDatabase] = None
+               ) -> np.ndarray:
+        """The swept symbols: the codes of ``database`` (default: the
+        loaded one) zero-padded to a multiple of ``pad_multiple`` (as the
+        JAX engine pads to its block width)."""
+        codes = (self.database if database is None else database).codes
         if codes.shape[0] % self.pad_multiple:
             codes = np.pad(codes, (0, round_up(codes.shape[0],
                                                self.pad_multiple)
                                    - codes.shape[0]))
         return codes
 
-    def _build_sweep(self) -> PipelinedSweep:
+    def _build_sweep(self, run: Optional[_Run] = None) -> PipelinedSweep:
+        """The sweep of ``run``'s database (default: the loaded one, for
+        :meth:`warmup`)."""
+        db, request = ((self.database, self._request) if run is None
+                       else (run.database, run.request))
         return PipelinedSweep(
-            self._codes(), self.scores, self.chunk_symbols, self.chunk_rows,
-            self.device, self.database, self.phmm_prefix,
-            reset_rows=self.reset_rows, request=self._request)
+            self._codes(db), self.scores, self.chunk_symbols,
+            self.chunk_rows, self.device, db, self.phmm_prefix,
+            reset_rows=self.reset_rows, request=request)
 
     def scan_files(self, fasta_paths: Sequence[str], prefetch: int = 1
                    ) -> Iterator[Tuple[str, ResolvedHits]]:
@@ -352,25 +390,45 @@ class Havac:
         the producer: its queue puts give up once the consumer is gone.
         Files are encoded in the loaded models' alphabet.
 
+        On one device without ``checkpoint_path``, file i+1's sweep is
+        staged as soon as the producer hands it over, and its launches
+        start once file i's last launch is enqueued: file i's drain, tail
+        and ``hits()`` then run on the host while file i+1's launches keep
+        the device busy. The scan's sweeps share one CUDA stream, so two
+        files' kernels run in turn, never at once. Each run carries its own state: at each yield
+        ``stats``, ``database`` and :meth:`hits` are the yielded file's. A
+        file whose sweep fails raises at the ``next()`` that asks for it;
+        closing the generator aborts a sweep in flight and joins its
+        thread. A mesh or checkpointed scan sweeps one file at a time.
+
         Each file's ``stats.pipeline_prof`` adds the API layer's phases:
         ``encode`` (span ``havac.encode``, on the producer), ``encode_wait``
         (the consumer's wait for the file, ``havac.encode_wait``) and
-        ``hits`` (``havac.hits``). File i is request ``r + i`` of the
-        spans, r the index of the scan's first run."""
+        ``hits`` (``havac.hits``), and the count ``launched_ahead``: the
+        file's launches enqueued before the previous file was yielded. File
+        i is request ``r + i`` of the spans, r the index of the scan's
+        first run."""
         if self.scores is None:
             raise HavacUsageError("load_phmm must be called before scan_files")
         q: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))
         stop = threading.Event()
+        wake = threading.Condition()  # a put, a launch phase's end, a run's
         end = object()
         first = self._request + 1
+        overlap = self.mesh is None and not self.checkpoint_path
+        stream = (torch.cuda.Stream(device=self.device)
+                  if self.device.type == "cuda" and self.mesh is None
+                  else None)
 
         def put(item) -> bool:
             while not stop.is_set():
                 try:
                     q.put(item, timeout=0.2)
-                    return True
                 except queue.Full:
                     continue
+                with wake:
+                    wake.notify_all()
+                return True
             return False
 
         def producer():
@@ -389,32 +447,68 @@ class Havac:
             finally:
                 put(end)
 
+        def take(i: int, block: bool):
+            wait = {"encode_wait": 0.0}
+            with span("havac.encode_wait", wait, "encode_wait",
+                      request=first + i):
+                item = q.get() if block else q.get_nowait()
+            if item is not end and item[0] is not None:
+                item[3].update(wait, hits=0.0)
+            return item
+
+        def begin(item, after: Optional[_Run] = None):
+            path, db, n_forward, prof = item
+            return path, prof, self._begin(db, n_forward, publish=not overlap,
+                                           stream=stream, wake=wake,
+                                           after=after)
+
         thread = threading.Thread(target=producer, daemon=True,
                                   name=SCAN_PRODUCER_THREAD)
         thread.start()
+        self._warm_sweep = None  # a warmed sweep staged other codes
+        taken = None  # the next file's queue item, taken early
+        ahead = None  # (path, prof, run) of the next file, started early
+        run = None
         try:
             for i in itertools.count():
-                wait = {"encode_wait": 0.0}
-                with span("havac.encode_wait", wait, "encode_wait",
-                          request=first + i):
-                    item = q.get()
-                if item is end:
-                    break
-                path, db, n_forward, prof = item
-                if path is None:
-                    raise db
-                prof.update(wait, hits=0.0)
-                self.database = db
-                self._n_forward = n_forward
-                self._warm_sweep = None  # a warmed sweep staged other codes
-                self.run()
-                with span("havac.hits", prof, "hits", request=first + i):
+                if ahead is not None:
+                    (path, prof, run), ahead = ahead, None
+                else:
+                    item = taken if taken is not None else take(i, True)
+                    taken = None
+                    if item is end:
+                        break
+                    if item[0] is None:
+                        raise item[1]
+                    path, prof, run = begin(item)
+                if overlap:
+                    with wake:
+                        wake.wait_for(lambda: run.done or not q.empty())
+                    if not q.empty():
+                        taken = take(i + 1, False)
+                        if taken is not end and taken[0] is not None:
+                            ahead, taken = begin(taken, after=run), None
+                run.thread.join()
+                with self._state_lock:
+                    self._show(run)
+                if run.error is not None:
+                    raise run.error
+                with span("havac.hits", prof, "hits", request=run.request):
                     hits = self.hits()
-                self.stats.pipeline_prof.update(prof)
+                self.stats.pipeline_prof.update(
+                    prof, launched_ahead=run.launched_ahead)
+                if ahead is not None:
+                    ahead[2].launched_ahead = ahead[2].chunks_done
                 yield path, hits
                 del hits  # hold no answer through the next file's run
         finally:
             stop.set()
+            for r in (run, ahead[2] if ahead else None):
+                if r is not None and r.thread.is_alive():
+                    self._abort_event.set()
+                    with wake:  # a run waiting to launch sees the abort
+                        wake.notify_all()
+                    r.thread.join()
             while not q.empty():  # unblock a producer waiting on put()
                 try:
                     q.get_nowait()
@@ -426,45 +520,83 @@ class Havac:
     @property
     def state(self) -> HavacRunState:
         with self._state_lock:
-            return self._state
+            return self._run.state
 
     @property
     def progress(self) -> float:
-        total = self._chunks_total
-        return self._chunks_done / total if total else 0.0
+        r = self._run
+        return r.chunks_done / r.chunks_total if r.chunks_total else 0.0
+
+    @property
+    def stats(self) -> RunStats:
+        """Phase timing and throughput of the run the caller sees."""
+        return self._run.stats
+
+    @property
+    def verification(self):
+        """The run's ``VerificationReport`` (``verify_hits=True``)."""
+        return self._run.verification
 
     def run(self) -> "Havac":
         """Synchronous sweep."""
         self.run_async()
         self.wait()
-        if self._error is not None:
-            raise self._error
+        if self._run.error is not None:
+            raise self._run.error
         return self
 
     def run_async(self) -> "Havac":
         """Start the sweep on a worker thread and return immediately."""
         if self.scores is None or self.database is None:
             raise HavacUsageError("load_phmm and load_sequence must be called before run")
-        with self._state_lock:
-            if self._state == HavacRunState.RUNNING:
-                raise HavacUsageError("a run is already in flight")
-            self._state = HavacRunState.RUNNING
-        self._abort_event.clear()
-        self._error = None
-        self._raw_keys = []
-        self._raw = None
-        self._resolved = None
-        self._chunks_done = 0
-        self.stats = RunStats()
-        self._request += 1
-        self._thread = threading.Thread(target=self._run_loop, daemon=True)
-        self._thread.start()
+        self._begin(self.database, self._n_forward, publish=True,
+                    warm=True)
         return self
+
+    def _begin(self, database: SequenceDatabase, n_forward: int, *,
+               publish: bool, warm: bool = False, stream=None,
+               wake: Optional[threading.Condition] = None,
+               after: Optional[_Run] = None) -> _Run:
+        """Start a run of ``database`` on its own thread, as the next
+        request. ``publish`` makes it the run the caller sees at once;
+        ``scan_files`` shows a run started ahead only when it yields the
+        run's file. ``warm`` hands the run the sweep :meth:`warmup` built;
+        ``after``, the run whose last launch its launches follow."""
+        with self._state_lock:
+            if publish and self._run.state == HavacRunState.RUNNING:
+                raise HavacUsageError("a run is already in flight")
+            self._request += 1
+            r = _Run(database, n_forward, self._request,
+                     HavacRunState.RUNNING, stream,
+                     wake or threading.Condition(), after)
+            if warm:
+                r.sweep, self._warm_sweep = self._warm_sweep, None
+            if publish:
+                self._show(r)
+        self._abort_event.clear()
+        r.thread = threading.Thread(target=self._run_loop, args=(r,),
+                                    daemon=True, name=SWEEP_THREAD)
+        r.thread.start()
+        return r
+
+    def _show(self, r: _Run) -> None:
+        """Make ``r`` the run the caller sees (under ``_state_lock``)."""
+        self._run = r
+        self.database, self._n_forward = r.database, r.n_forward
+
+    def _end(self, r: _Run, state: HavacRunState,
+             error: Optional[BaseException] = None) -> None:
+        """The run's last step, on its thread: its final state."""
+        with self._state_lock:
+            r.error = error
+            r.state = state
+        r.mark("done")
 
     def wait(self, timeout: Optional[float] = None) -> HavacRunState:
         """Block until the sweep finishes (or ``timeout`` seconds pass)."""
-        if self._thread is not None:
-            self._thread.join(timeout)
+        thread = self._run.thread
+        if thread is not None:
+            thread.join(timeout)
         return self.state
 
     def abort(self) -> None:
@@ -473,18 +605,18 @@ class Havac:
 
     # ------------------------------------------------------------------ hits
 
-    def _sorted_raw(self) -> Tuple[np.ndarray, np.ndarray]:
+    def _sorted_raw(self, r: _Run) -> Tuple[np.ndarray, np.ndarray]:
         with self._state_lock:
-            if self._raw is None:
-                self._raw = raw_pairs(self._raw_keys, ordered=True)
-                self._raw_keys = []
-            return self._raw
+            if r.raw is None:
+                r.raw = raw_pairs(r.raw_keys, ordered=True)
+                r.raw_keys = []
+            return r.raw
 
     def raw_hits(self) -> Tuple[np.ndarray, np.ndarray]:
         """Unresolved global (phmm_row, sequence_position) hit coordinates,
         sorted by (row, position), padding and separator hits included."""
         self._require_completed()
-        return self._sorted_raw()
+        return self._sorted_raw(self._run)
 
     def hits(self) -> ResolvedHits:
         """Resolved hits ordered by (row, position): padding/separator hits
@@ -492,13 +624,14 @@ class Havac:
         strand="both", minus-strand hits are reported in forward
         coordinates with strand '-'."""
         self._require_completed()
-        resolved = self._resolved
+        r = self._run
+        resolved = r.resolved
         if self.strand == "both":
-            n = self._n_forward
+            n = r.n_forward
             minus = resolved.sequence_index >= n
             idx = np.where(minus, resolved.sequence_index - n,
                            resolved.sequence_index)
-            lens = self.database.lengths[resolved.sequence_index]
+            lens = r.database.lengths[resolved.sequence_index]
             pos = np.where(minus, lens - 1 - resolved.sequence_position,
                            resolved.sequence_position)
             resolved = ResolvedHits(
@@ -516,16 +649,18 @@ class Havac:
         without replacement (a numpy Generator seeded from ``seed``)
         instead of all of them."""
         self._require_completed()
-        rows, positions = self._sorted_raw()
+        rows, positions = self._sorted_raw(self._run)
         if sample is not None and sample < rows.shape[0]:
             rng = np.random.default_rng(self.seed)
             pick = np.sort(rng.choice(rows.shape[0], size=sample,
                                       replace=False))
             rows, positions = rows[pick], positions[pick]
-        return self._verify_raw(rows, positions, initial_bound)
+        return self._verify_raw(rows, positions, self._run.database,
+                                initial_bound)
 
-    def _verify_raw(self, rows, positions, initial_bound: int = 64):
-        codes = self._codes()
+    def _verify_raw(self, rows, positions, database,
+                    initial_bound: int = 64):
+        codes = self._codes(database)
         if positions.size and int(positions.max()) >= codes.shape[0]:
             codes = np.pad(codes,
                            (0, int(positions.max()) + 1 - codes.shape[0]))
@@ -533,21 +668,22 @@ class Havac:
                            reset_rows=self.reset_rows,
                            initial_bound=initial_bound)
 
-    def _maybe_verify(self) -> None:
-        self.stats.native_active = native.available()
+    def _maybe_verify(self, r: _Run) -> None:
+        r.stats.native_active = native.available()
         if not self.verify_hits:
             return
-        rows, positions = self._sorted_raw()
-        report = self._verify_raw(rows, positions)
-        self.verification = report
-        self.stats.num_unverified = report.num_hits - report.num_verified
+        rows, positions = self._sorted_raw(r)
+        report = self._verify_raw(rows, positions, r.database)
+        r.verification = report
+        r.stats.num_unverified = report.num_hits - report.num_verified
         if not report.all_verified:
             raise HitVerificationError(report, rows, positions)
 
     def _require_completed(self) -> None:
-        state = self.state
-        if state == HavacRunState.ERROR and self._error is not None:
-            raise self._error
+        with self._state_lock:
+            state, error = self._run.state, self._run.error
+        if state == HavacRunState.ERROR and error is not None:
+            raise error
         if state != HavacRunState.COMPLETED:
             raise HavacUsageError(
                 f"hits requested in state {state.value}; run must complete first")
@@ -576,20 +712,23 @@ class Havac:
         if self.dist_rows_per_step < 1:
             raise HavacUsageError("dist_rows_per_step must be at least 1")
 
-    def _run_loop(self) -> None:
+    def _run_loop(self, r: _Run) -> None:
         if self.mesh is not None:
-            self._run_loop_distributed()
+            self._run_loop_distributed(r)
             return
         try:
-            sweep = self._warm_sweep
-            self._warm_sweep = None
-            if sweep is None:
-                sweep = self._build_sweep()
-            sweep.request = self._request  # warmed before this run
-            self._chunks_total = sweep.n_col * sweep.n_row
+            sweep = r.sweep if r.sweep is not None else self._build_sweep(r)
+            r.sweep = None
+            sweep.request = r.request  # warmed before this run
+            r.chunks_total = sweep.n_col * sweep.n_row
+            if r.after is not None:  # staged; launch after its launches
+                with r.wake:
+                    r.wake.wait_for(lambda: r.after.launched or r.after.done
+                                    or self._abort_event.is_set())
+                r.after = None  # hold none of its hits
 
             def progress(done):
-                self._chunks_done = done
+                r.chunks_done = done
 
             checkpoint_cb = resume = None
             if self.checkpoint_path:
@@ -598,7 +737,8 @@ class Havac:
                 resume = self._load_checkpoint(fingerprint, sweep.n_row,
                                                sweep.rchunk)
                 if resume is not None:
-                    self.resumed_chunks = resume[0] * sweep.n_row
+                    self.resumed_chunks = r.chunks_done = (resume[0]
+                                                           * sweep.n_row)
 
                 def checkpoint_cb(next_ci, carries, rows_s, pos_s):
                     tmp = self.checkpoint_path + ".tmp"
@@ -612,35 +752,33 @@ class Havac:
             log.info("pipelined sweep: %d column x %d row chunks, backend=%s",
                      sweep.n_col, sweep.n_row, self.backend)
             result = sweep.run(self._abort_event, progress,
-                               checkpoint_cb=checkpoint_cb, resume=resume)
+                               checkpoint_cb=checkpoint_cb, resume=resume,
+                               stream=r.stream,
+                               launched=functools.partial(r.mark, "launched"))
             if result is None:
-                with self._state_lock:
-                    self._state = HavacRunState.ABORTED
+                self._end(r, HavacRunState.ABORTED)
                 return
-            self._resolved, self._raw_keys, t_sweep = result
-            self.stats.overflow_retries = sweep.regrows
-            self.stats.pipeline_prof = dict(sweep.prof)
-            self.stats.num_chunks = self._chunks_total
-            self.stats.cells = sweep.L * sweep.P
-            self.stats.sweep_seconds = t_sweep
-            self.stats.num_raw_hits = sum(int(k.shape[0])
-                                          for k in self._raw_keys)
-            self.stats.chunk_geometry = {
+            r.resolved, r.raw_keys, t_sweep = result
+            st = r.stats
+            st.overflow_retries = sweep.regrows
+            st.pipeline_prof = dict(sweep.prof)
+            st.num_chunks = r.chunks_total
+            st.cells = sweep.L * sweep.P
+            st.sweep_seconds = t_sweep
+            st.num_raw_hits = sum(int(k.shape[0]) for k in r.raw_keys)
+            st.chunk_geometry = {
                 "n_col": sweep.n_col, "n_row": sweep.n_row,
                 "chunk_symbols": sweep.chunk, "chunk_rows": sweep.rchunk,
                 "key_cap": sweep.key_cap, "lookahead": sweep.lookahead,
             }
             if self.checkpoint_path and os.path.exists(self.checkpoint_path):
                 os.remove(self.checkpoint_path)
-            self._maybe_verify()
-            with self._state_lock:
-                self._state = HavacRunState.COMPLETED
+            self._maybe_verify(r)
+            self._end(r, HavacRunState.COMPLETED)
         except BaseException as exc:  # surfaced on run()/hits()
-            self._error = exc
-            with self._state_lock:
-                self._state = HavacRunState.ERROR
+            self._end(r, HavacRunState.ERROR, exc)
 
-    def _run_loop_distributed(self) -> None:
+    def _run_loop_distributed(self, r: _Run) -> None:
         try:
             P = self.scores.shape[0]
             keyed = dict(rows_per_step=self.dist_rows_per_step,
@@ -665,13 +803,15 @@ class Havac:
                                              self.mesh_axis, **keyed)
                 args = (self.scores, self.reset_rows)
                 hooks = self._mesh_checkpoint_hooks(sweep, P)
-            sweep.request = self._request
+            sweep.request = r.request
 
             def progress(step, total):
-                self._chunks_total = total
-                self._chunks_done = step
+                r.chunks_total = total
+                r.chunks_done = step
 
             checkpoint_cb, resume, ck_path = hooks
+            if resume is not None:
+                r.chunks_done = resume[0]
             log.info("mesh sweep: %s, %d shards of %d positions, %d rows a "
                      "step, backend=%s", self.mesh.shape, sweep.D,
                      sweep.shard_width, sweep.R, self.backend)
@@ -681,42 +821,39 @@ class Havac:
                                  checkpoint_cb=checkpoint_cb, resume=resume,
                                  ckpt_every=4)
             if result is None:
-                with self._state_lock:
-                    self._state = HavacRunState.ABORTED
+                self._end(r, HavacRunState.ABORTED)
                 return
             if ck_path and os.path.exists(ck_path):
                 os.remove(ck_path)
-            self._finish_distributed(result, sweep, P,
+            self._finish_distributed(r, result, sweep, P,
                                      time.perf_counter() - t0)
         except BaseException as exc:  # surfaced on run()/hits()
-            self._error = exc
-            with self._state_lock:
-                self._state = HavacRunState.ERROR
+            self._end(r, HavacRunState.ERROR, exc)
 
-    def _finish_distributed(self, result, sweep: SwarDistributedSweep,
-                            P: int, t_sweep: float) -> None:
-        self._resolved, self._raw_keys = result
-        self.stats.num_chunks = sweep.launches
-        self.stats.cells = self.database.padded_length * P
-        self.stats.sweep_seconds = t_sweep
-        self.stats.num_raw_hits = sum(int(k.shape[0])
-                                      for k in self._raw_keys)
-        self.stats.overflow_retries = sweep.regrows
-        self.stats.pipeline_prof = dict(sweep.prof)
+    def _finish_distributed(self, r: _Run, result,
+                            sweep: SwarDistributedSweep, P: int,
+                            t_sweep: float) -> None:
+        r.resolved, r.raw_keys = result
+        st = r.stats
+        st.num_chunks = sweep.launches
+        st.cells = r.database.padded_length * P
+        st.sweep_seconds = t_sweep
+        st.num_raw_hits = sum(int(k.shape[0]) for k in r.raw_keys)
+        st.overflow_retries = sweep.regrows
+        st.pipeline_prof = dict(sweep.prof)
         row_chunks = [S for _, _, S in sweep.groups]
-        self.stats.chunk_geometry = {
+        st.chunk_geometry = {
             "shards": sweep.D, "rows_per_step": sweep.R,
             "row_chunks": max(row_chunks), "steps": sweep.T,
             "launches": sweep.launches, "shard_width": sweep.shard_width,
             "key_cap": sweep.key_cap, "lookahead": sweep.lookahead,
         }
         if isinstance(sweep, Swar2DSweep):
-            self.stats.chunk_geometry.update(
+            st.chunk_geometry.update(
                 model_groups=sweep.D_model, group_bounds=list(sweep.bounds),
                 group_row_chunks=row_chunks)
-        self._maybe_verify()
-        with self._state_lock:
-            self._state = HavacRunState.COMPLETED
+        self._maybe_verify(r)
+        self._end(r, HavacRunState.COMPLETED)
 
     def _mesh_checkpoint_hooks(self, sweep: SwarDistributedSweep, P: int):
         """(checkpoint_cb, resume, path) for the mesh sweep, every 4 steps.
@@ -752,7 +889,6 @@ class Havac:
                 resume = None
         if resume is not None:
             self.resumed_chunks = resume[0]
-            self._chunks_done = resume[0]
         save = self._step_checkpoint_writer(path, fp)
 
         def checkpoint_cb(t_next, istate, ilo, seams, slo, rows_s, pos_s):
@@ -786,7 +922,6 @@ class Havac:
             path, fp, (grid + (sweep.shard_width,), grid + (sweep.R + 1,)))
         if resume is not None:
             self.resumed_chunks = resume[0]
-            self._chunks_done = resume[0]
         return self._step_checkpoint_writer(path, fp), resume, path
 
     def _load_step_checkpoint(self, path: str, fp: int, shapes):
@@ -850,7 +985,6 @@ class Havac:
                 if (int(ck["fingerprint"]) == fingerprint
                         and "carries" in ck
                         and ck["carries"].shape == (n_row, rchunk + 1)):
-                    self._chunks_done = int(ck["next_ci"]) * n_row
                     return (int(ck["next_ci"]), ck["carries"].astype(np.int32),
                             ck["hit_rows"], ck["hit_positions"])
         except FileNotFoundError:

@@ -367,7 +367,7 @@ class PipelinedSweep(KeyedLaunches):
              "regrow", "sort", "resolve", "drain", "resolve_wait", "tail",
              "tail_merge", "tail_gather"), 0.0)
         self.prof["tail_segments"] = self.prof["launches"] = 0
-        self.prof["reset_windows"] = 0
+        self.prof["reset_windows"] = self.prof["launched_ahead"] = 0
         with span("havac.stage", self.prof, "stage", request=request):
             self.device = torch.device(device)
             if self.device.type == "cuda":
@@ -420,7 +420,8 @@ class PipelinedSweep(KeyedLaunches):
 
     def run(self, abort_event=None,
             progress: Optional[Callable[[int], None]] = None,
-            checkpoint_cb=None, resume=None
+            checkpoint_cb=None, resume=None, stream=None,
+            launched: Optional[Callable[[], None]] = None
             ) -> Optional[Tuple[ResolvedHits, List[np.ndarray], float]]:
         """Full sweep; returns (resolved, raw key parts, sweep seconds), or
         None when aborted. ``resolved`` is ordered by (row, position); each
@@ -430,22 +431,27 @@ class PipelinedSweep(KeyedLaunches):
         ``checkpoint_cb(next_ci, carries (n_row, rchunk+1) int32, rows,
         positions)`` runs after every column chunk but the last, with the
         pipeline drained; ``resume`` is such a payload to continue from —
-        the JAX engine's pipelined checkpoint form."""
-        stream = (torch.cuda.Stream(device=self.device)
-                  if self.device.type == "cuda" else None)
+        the JAX engine's pipelined checkpoint form.
+
+        The launches go to ``stream`` (CUDA; a new stream when None): sweeps
+        that share one run their kernels in the order they were enqueued,
+        never two at once. ``launched()`` runs once the last launch is
+        enqueued, before the drain and the tail."""
+        if stream is None and self.device.type == "cuda":
+            stream = torch.cuda.Stream(device=self.device)
         ctx = (torch.cuda.stream(stream) if stream is not None
                else contextlib.nullcontext())
         wall = {"sweep": 0.0}
         with span(None, wall, "sweep"), ctx, \
                 ThreadPoolExecutor(max_workers=4) as pool:
             out = self._run(pool, abort_event, progress, checkpoint_cb,
-                            resume, stream)
+                            resume, stream, launched)
         if out is None:
             return None
         return out[0], out[1], wall["sweep"]
 
     def _run(self, pool, abort_event, progress, checkpoint_cb, resume,
-             stream):
+             stream, launched):
         dev = self.device
         futures: List = []
         results: List[ChunkHits] = []
@@ -516,6 +522,8 @@ class PipelinedSweep(KeyedLaunches):
                     carries[ri, :c.shape[0]] = c.cpu().numpy()
                 rows_s, pos_s = raw_pairs([r.keys for r in results])
                 checkpoint_cb(ci + 1, carries, rows_s, pos_s)
+        if launched is not None:
+            launched()
         with span(None, self.prof, "drain"):
             while pend:
                 drain_one()

@@ -8,7 +8,7 @@ a device idle gap by the host event overlapping it most finds the phase
 itself. A span without a name only counts; ``gate_wait``, ``drain``,
 ``tail`` and the sweep's wall enclose named spans that way.
 
-Every counter of ``pipeline_prof`` holds seconds but three, which count:
+Every counter of ``pipeline_prof`` holds seconds but four, which count:
 ``tail_segments`` counts the (chunk, row) segments that the tail placed by
 the chunks' rectangles (`engine/pipeline.py` `_merge_resolved`; 0 where it
 merged by comparison), and is also the ``segments`` argument of the
@@ -20,7 +20,10 @@ counted. Each launch carries its alphabet's size (``card``), the
 number of model starts among its rows that reset the chain (``resets``)
 and the number of its 16-row hit windows that hold one
 (``reset_windows``: only those run the kernel's reset test); the counter
-``reset_windows`` sums the last over the launches.
+``reset_windows`` sums the last over the launches. ``launched_ahead``
+counts a ``scan_files`` file's launches enqueued before the previous file
+was yielded (`engine/api.py`): its ``havac.launch`` spans lie beside the
+previous request's tail and ``havac.hits``, on another thread.
 
 ``Havac.load_phmm`` times its two halves apart from any search, into
 ``Havac.load_prof``: ``parse`` (span ``havac.load.parse``, the ``.hmm``

@@ -85,7 +85,9 @@ class SwarDistributedSweep(KeyedLaunches):
     ``ready_wait``
     (waiting on the device), ``fetch``, ``regrow``, ``sort``, ``resolve``,
     ``resolve_wait`` and ``tail`` (``tail_merge`` and ``tail_gather``),
-    and counts the tail's placed segments in ``tail_segments``.
+    and counts the tail's placed segments in ``tail_segments``
+    (``launched_ahead`` stays 0: a mesh run is never launched ahead of
+    another, `engine/api.py` ``scan_files``).
     ``request`` is the engine's index of the run. After a run,
     ``launches``, ``steps`` and ``regrows`` count it, ``groups`` holds each
     model group's (first row, rows, row chunks S) and ``T`` the steps of
@@ -125,7 +127,7 @@ class SwarDistributedSweep(KeyedLaunches):
              "resolve", "seam", "resolve_wait", "tail", "tail_merge",
              "tail_gather"), 0.0)
         self.prof["tail_segments"] = self.prof["launches"] = 0
-        self.prof["reset_windows"] = 0
+        self.prof["reset_windows"] = self.prof["launched_ahead"] = 0
         self.launches = 0
         self.steps = 0
         self.groups: List[Tuple[int, int, int]] = []

@@ -9,6 +9,7 @@ is made inside the fixture, never at import). On the card:
 
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -430,6 +431,47 @@ def test_scan_files_cuda_matches_cpu(dev, tmp_path):
                       for p, h in e.scan_files(paths, prefetch=2)])
     assert scans[0] == scans[1]
     assert sum(len(h) for _, h in scans[0]) > 0
+
+
+def test_scan_files_cuda_overlap_equals_per_file_runs(dev, tmp_path,
+                                                      monkeypatch):
+    """On the card, each file's launches are enqueued while the previous
+    file's tail runs (made 0.2 s longer, so every later file overlaps) on
+    the scan's one stream; every file equals a run of its own, column for
+    column."""
+    from havac_tpu_torch.engine import pipeline
+
+    models, _ = generate_planted_fixture(seed=29, model_length=60,
+                                         sequence_length=10, num_models=4)
+    paths = []
+    for i, n in enumerate((40_000, 90_000, 25_000, 70_000)):
+        _, recs = generate_planted_fixture(seed=29 + i, model_length=60,
+                                           sequence_length=n, num_models=4)
+        paths.append(str(tmp_path / f"db{i}.fasta"))
+        with open(paths[-1], "w") as f:
+            f.write("".join(f">{name}\n{s}\n" for name, s in recs))
+    kw = dict(p_value=0.05, device=dev, chunk_symbols=8192, chunk_rows=64)
+    one = Havac(**kw).load_phmm(models)
+    want = []
+    for path in paths:
+        one.load_sequence(path).run()
+        want.append(one.hits().as_tuples_stranded())
+    merge = pipeline._merge_resolved
+
+    def slow(*args, **kwargs):
+        time.sleep(0.2)
+        return merge(*args, **kwargs)
+
+    monkeypatch.setattr(pipeline, "_merge_resolved", slow)
+    eng = Havac(**kw).load_phmm(models)
+    got, ahead = [], []
+    for path, hits in eng.scan_files(paths, prefetch=2):
+        got.append(hits.as_tuples_stranded())
+        prof = eng.stats.pipeline_prof
+        assert prof["launches"] > 1
+        ahead.append(prof["launched_ahead"])
+    assert got == want and sum(len(h) for h in got) > 0
+    assert ahead[0] == 0 and all(n > 0 for n in ahead[1:])
 
 
 @pytest.mark.parametrize("name", roofline.VARIANTS)

@@ -341,7 +341,7 @@ def test_engine_on_a_mesh_matches_jax_mesh_and_single_device(planted, strand):
     assert set(ours.stats.pipeline_prof) == {
         "dispatch", "sync", "ready_wait", "fetch", "regrow", "sort", "resolve",
         "seam", "resolve_wait", "tail", "tail_merge", "tail_gather",
-        "tail_segments", "launches", "reset_windows"}
+        "tail_segments", "launches", "reset_windows", "launched_ahead"}
     assert ours.stats.pipeline_prof["tail_segments"] > 0
     assert ours.stats.pipeline_prof["launches"] == geo["launches"]
 

@@ -355,7 +355,7 @@ def test_engine_2d_matches_the_jax_engine(engine_case, strand):
     assert set(ours.stats.pipeline_prof) == {
         "dispatch", "sync", "ready_wait", "fetch", "regrow", "sort", "resolve",
         "seam", "resolve_wait", "tail", "tail_merge", "tail_gather",
-        "tail_segments", "launches", "reset_windows"}
+        "tail_segments", "launches", "reset_windows", "launched_ahead"}
     assert ours.stats.pipeline_prof["tail_segments"] > 0
     assert ours.stats.pipeline_prof["launches"] == geo["launches"]
 

@@ -168,12 +168,12 @@ class _AbortAt(Havac):
                          **kw)
         self.at = at
 
-    def _build_sweep(self):
-        sweep = super()._build_sweep()
+    def _build_sweep(self, run=None):
+        sweep = super()._build_sweep(run)
         run = sweep.run
 
         def run_then_abort(abort_event, progress, checkpoint_cb=None,
-                           resume=None):
+                           resume=None, **kw):
             def prog(done):
                 progress(done)
                 if self.at is not None and done >= self.at:
@@ -186,7 +186,7 @@ class _AbortAt(Havac):
 
             return run(abort_event, prog,
                        checkpoint_cb=cb if checkpoint_cb else None,
-                       resume=resume)
+                       resume=resume, **kw)
 
         sweep.run = run_then_abort
         return sweep

@@ -81,21 +81,21 @@ def test_past_the_key_bounds_matches_jax(fixture, monkeypatch, case):
 class _AbortAfterCheckpoint(Havac):
     """Sets the abort flag right after the first checkpoint is written."""
 
-    def _build_sweep(self):
-        sweep = super()._build_sweep()
+    def _build_sweep(self, run=None):
+        sweep = super()._build_sweep(run)
         sweep.key_cap = 2  # every chunk with hits regrows
         run = sweep.run
         self.sweep = sweep
 
         def run_then_abort(abort_event, progress, checkpoint_cb=None,
-                           resume=None):
+                           resume=None, **kw):
             def cb(*payload):
                 checkpoint_cb(*payload)
                 self.saved = payload
                 abort_event.set()
 
             return run(abort_event, progress, checkpoint_cb=cb,
-                       resume=resume)
+                       resume=resume, **kw)
 
         sweep.run = run_then_abort
         return sweep
